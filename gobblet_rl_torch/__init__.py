@@ -1,0 +1,23 @@
+"""gobblet_rl_torch — the Gobblet RL framework on PyTorch and CUDA (Hopper).
+
+A port of :mod:`gobblet_rl_tpu` that keeps its module names, so each module
+here has its JAX counterpart at the same path.  The package imports
+``torch`` and ``numpy`` only; it never imports JAX or the JAX package.
+
+Entry points run on the CUDA card unless the caller passes a device
+(``device="cpu"`` runs the plain tensor code, as the tests do).
+
+Layout:
+
+* ``core/types.py``        sizes and per-action tables (numpy)
+* ``device.py``            ``device=None`` -> CUDA, or raise
+* ``ops/batched_core.py``  the lane-major ``[3, 9, B]`` engine
+* ``kernels/rollout.py``   the fused random rollout (hand-written CUDA,
+  ``kernels/csrc/rollout.cu``) and its plain version
+* ``models/mlp.py``        ``QNet`` + masked argmax; ``models/convert.py``
+  loads flax parameters
+* ``train/replay.py``      the state-snapshot replay ring
+* ``train/dqn.py``         the fused DQN actor-learner
+"""
+
+__version__ = "0.1.0"
