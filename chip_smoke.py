@@ -6,7 +6,7 @@ Drives the port's main path at full width and holds every kernel against
 its plain PyTorch version:
 
 1. the card's name and power limit;
-2. builds every CUDA kernel from ``gobblet_rl_torch/kernels/csrc`` with nvcc;
+2. builds the CUDA kernel from ``gobblet_rl_torch/kernels/csrc`` with nvcc;
 3. the fused-rollout kernel vs its plain version on the card (field mode
    and Philox mode at B=16384, Philox mode at a ragged B=4099; 32 plies):
    board, player and stats must be bit-identical (tolerance 0);
@@ -38,15 +38,28 @@ DQN = dict(num_envs=262144, buffer_size=4194304, batch_size=4096, segment_len=16
            update_per_collect=8, n_step=3, opponent="random",
            hidden_sizes=(128, 128, 128, 128), double=True, dueling=True)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the float32
-# rate outside the tensor cores, taken as the rate of 32-bit integer ops.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and 67e12/s, the
+# float32 rate outside the tensor cores.  The data sheet gives no 32-bit
+# integer rate, so the float32 rate is used here for int32 operations.
 PEAK_HBM_BYTES = 3.35e12
 PEAK_32BIT_OPS = 67e12
-# Integer operations of one env-ply of the rollout kernel: 14 Philox4x32-10
-# blocks of 10 rounds (2 mul.hi, 2 mul.lo, 4 xor, 2 key adds each), 4 per
-# action for the legality test and the running max, and ~250 for the mask's
-# cell pass, placement, the win fold and the reset.
-OPS_PER_ENV_PLY = 14 * 10 * 10 + 54 * 4 + 250
+# 32-bit integer operations of the rollout kernel in Philox mode, counted
+# from csrc/rollout.cu: one per arithmetic, logic, compare or select of the
+# source, each counted once in the scope its operands vary in (ply, block or
+# env), with constants folded and unused Philox words dropped.
+OPS_PER_PLY = {
+    "philox: 14 blocks x 60, 10 shared by the blocks, 4 unused": 14 * 60 + 10 - 4,
+    "player sign": 2,
+    "cell pass (top piece, size, frozen bits): 9 cells x 27": 9 * 27,
+    "legality 129, then draw and running max: 54 actions x 5": 129 + 54 * 5,
+    "placement: target 11, then 27 cells x 4": 11 + 27 * 4,
+    "top pieces after the move: 9 cells x 4": 9 * 4,
+    "win fold: 18 sign tests, then 8 lines x 7": 18 + 8 * 7,
+    "counts 8 and reset 27": 8 + 27,
+    "ply loop": 2,
+}
+# once per env: key schedule 18, per-block constants 70, warp reduction 30
+OPS_PER_ENV = 18 + 70 + 30
 
 
 def log(msg: str) -> None:
@@ -110,13 +123,11 @@ def main() -> int:
 
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    built = build.build_all()
-    log(f"# build: {len(built)} kernel(s) in {time.perf_counter() - t0:.2f}s")
-    for b in built.values():
-        log(f"# {b.name}: nvcc {b.seconds:.2f}s -> {b.path.name}")
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"#   {line.strip()}")
+    lib, nvcc_log = build.build("rollout")
+    log(f"# build: rollout in {time.perf_counter() - t0:.2f}s -> {lib.name}")
+    for line in nvcc_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"#   {line.strip()}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -235,7 +246,7 @@ def main() -> int:
     del field
 
     nbytes = ROLLOUT_B * (27 + 4) * 2 + 3 * 8
-    ops = ROLLOUT_B * ROLLOUT_STEPS * OPS_PER_ENV_PLY
+    ops = ROLLOUT_B * (ROLLOUT_STEPS * sum(OPS_PER_PLY.values()) + OPS_PER_ENV)
     bytes_ms, ops_ms = 1e3 * nbytes / PEAK_HBM_BYTES, 1e3 * ops / PEAK_32BIT_OPS
     log(smi)
     log(json.dumps({"kernels": [{

@@ -5,37 +5,25 @@ plain C interface (no PyTorch headers, so a build takes seconds), for
 ``sm_90a``.  The library lands in ``gobblet_rl_torch/_build/`` under a name
 keyed on a hash of its source and flags, so an edited source rebuilds and
 an unchanged one is reused.  Nothing builds when the module is imported:
-:func:`load` builds at first use, and :func:`build_all` starts one ``nvcc``
-per source, all at once.
+:func:`load` builds at first use.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("rollout",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
-
-@dataclasses.dataclass(frozen=True)
-class Built:
-    name: str
-    path: Path
-    seconds: float   # wall time of this build; 0.0 when reused
-    log: str         # nvcc/ptxas output (registers, spills) of the build
 
 
 def nvcc() -> str:
@@ -51,47 +39,27 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def build_all(names=KERNELS) -> dict[str, Built]:
-    """Build every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together.  Raises with the compiler's output if a
-    build fails."""
+def build(name: str) -> tuple[Path, str]:
+    """Build ``csrc/<name>.cu`` unless it is built already.  Returns the
+    library's path and the compiler's output (ptxas registers and spills;
+    empty when reused).  Raises with that output if the build fails."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    target = BUILD_DIR / f"lib{name}-{digest}.so"
+    if target.exists():
+        return target, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out, running = {}, {}
-    for name in names:
-        target = _target(name)
-        if target.exists():
-            log_path = target.with_suffix(".log")
-            log = log_path.read_text() if log_path.exists() else ""
-            out[name] = Built(name, target, 0.0, log)
-            continue
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-        running[name] = (proc, tmp, target, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, target, t0) in running.items():  # wait for all
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        target.with_suffix(".log").write_text(log)
-        os.replace(tmp, target)
-        out[name] = Built(name, target, seconds, log)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, target)
+    return target, proc.stdout + proc.stderr
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    return ctypes.CDLL(str(build_all((name,))[name].path))
+    return ctypes.CDLL(str(build(name)[0]))

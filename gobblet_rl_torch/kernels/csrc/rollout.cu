@@ -11,8 +11,9 @@
 //
 // What bounds it on this card: integer ALU, not memory.  A call reads and
 // writes 31 B per env (27-byte board + int32 player) once, while each ply
-// spends ~1.4k integer operations on 14 Philox4x32-10 blocks (54 draws) and
-// a few hundred on the 54-action mask, placement and win fold.
+// spends about 1,760 integer operations: ~850 on 14 Philox4x32-10 blocks
+// (54 draws) and ~900 on the 54-action mask, placement and win fold
+// (itemised in chip_smoke.py).
 //
 // What the simple design does about it:
 //  * the board lives in 27 registers for the whole call, so device memory

@@ -17,11 +17,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
+from gobblet_rl_torch.device import resolve_device
+
 
 class QNet(nn.Module):
-    """MLP Q-net.  Layers are built without initialisation (no draw from
-    the global RNG); :meth:`reset_parameters` initialises them from an
-    explicit generator, or a state dict is loaded."""
+    """MLP Q-net on ``device`` (``None``: the CUDA card, or raise).  Layers
+    are built without initialisation (no draw from the global RNG);
+    :meth:`reset_parameters` initialises them from an explicit generator, or
+    a state dict is loaded."""
 
     def __init__(self, num_actions: int = 54,
                  hidden_sizes: Sequence[int] = (128, 128, 128, 128),
@@ -30,6 +33,7 @@ class QNet(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.dueling = dueling
+        device = resolve_device(device)
         widths = [in_features, *hidden_sizes]
         self.hidden = nn.ModuleList(
             skip_init(nn.Linear, i, o, device=device) for i, o in zip(widths, widths[1:])

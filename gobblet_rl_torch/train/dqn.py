@@ -235,7 +235,7 @@ def make_train_iteration(config: DQNConfig):
 
 def make_net(config: DQNConfig, device=None) -> QNet:
     return QNet(hidden_sizes=tuple(config.hidden_sizes), dueling=config.dueling,
-                device=resolve_device(device))
+                device=device)
 
 
 def init_train_state(config: DQNConfig, net: QNet, generator: torch.Generator) -> TrainState:

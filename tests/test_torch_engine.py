@@ -18,6 +18,7 @@ import torch
 
 from gobblet_rl_torch.core import types as TT
 from gobblet_rl_torch.device import resolve_device
+from gobblet_rl_torch.models.mlp import QNet
 from gobblet_rl_torch.ops import batched_core as tbc
 from gobblet_rl_tpu.core import types as JT
 from gobblet_rl_tpu.ops import batched_core as jbc
@@ -109,6 +110,8 @@ def test_device_none_means_cuda():
             resolve_device(None)
         with pytest.raises(RuntimeError):
             tbc.reset_planes(8)
+        with pytest.raises(RuntimeError):
+            QNet()
     assert resolve_device("cpu") == CPU
 
 
