@@ -6,17 +6,22 @@ Drives the port's main path at full width and holds every kernel against
 its plain PyTorch version:
 
 1. the card's name and power limit;
-2. builds the CUDA kernel from ``gobblet_rl_torch/kernels/csrc`` with nvcc;
+2. builds the CUDA kernel from ``gobblet_rl_torch/kernels/csrc`` with nvcc,
+   checks that ptxas reports no spills, prints the blocks per SM and counts
+   the machine instructions of the ply loop (cuobjdump);
 3. the fused-rollout kernel vs its plain version on the card (field mode
-   and Philox mode at B=16384, Philox mode at a ragged B=4099; 32 plies):
-   board, player and stats must be bit-identical (tolerance 0);
+   and Philox mode at B=16384, Philox mode at a ragged B=4099; 32 plies;
+   from states 5 plies and 40 plies deep): board, player and stats must be
+   bit-identical (tolerance 0);
 4. the full-width rollout through the kernel (B=524288, 64 plies, 2 warm-ups
    + 5 timed calls on one state chain) beside the engine's
    ``batched_core.rollout_random``, with the episode invariants checked;
 5. the full-width DQN iteration (262,144 envs, the bench configuration with
    the dueling head), then ``dqn.train`` for one epoch of two iterations;
 6. the kernel line: launches on the main path (phases 4-5), agreement with
-   the plain version at the main path's shape, times and the bound.
+   the plain version at the main path's shape, times and the bound (the
+   larger of bytes over HBM bandwidth and the ply loop's instructions over
+   the SMs' integer rates; see the constants below).
 
 Any failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -24,11 +29,15 @@ Any failed check raises, so the exit code is non-zero.  The last line is
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -38,28 +47,112 @@ DQN = dict(num_envs=262144, buffer_size=4194304, batch_size=4096, segment_len=16
            update_per_collect=8, n_step=3, opponent="random",
            hidden_sizes=(128, 128, 128, 128), double=True, dueling=True)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and 67e12/s, the
-# float32 rate outside the tensor cores.  The data sheet gives no 32-bit
-# integer rate, so the float32 rate is used here for int32 operations.
+# The bound.  Bytes: HBM at 3.35e12 B/s (NVIDIA's H100 SXM data sheet).
+# Operations: the machine instructions of the kernel's ply loop, read from
+# the built library with cuobjdump, times the env-plies, over two rates of
+# an SM at the clock nvidia-smi reports as clocks.max.sm.  The CUDA C++
+# Programming Guide's table of arithmetic instruction throughput gives
+# compute capability 9.0 64 results a clock per SM for 32-bit integer add,
+# compare, min/max, logic and shift: the integer ALU pipe that INT_ALU_OPS
+# run on.  Multiply-adds (IMAD, also used for moves and shifts) run on the
+# FMA pipe beside it, so every instruction is bounded only by issue: four
+# schedulers an SM, each one warp instruction (32 threads) a clock.  The
+# larger of the two is the issue floor of the code that runs, not of the
+# function.
 PEAK_HBM_BYTES = 3.35e12
-PEAK_32BIT_OPS = 67e12
-# 32-bit integer operations of the rollout kernel in Philox mode, counted
-# from csrc/rollout.cu: one per arithmetic, logic, compare or select of the
-# source, each counted once in the scope its operands vary in (ply, block or
-# env), with constants folded and unused Philox words dropped.
+SMS, INT_ALU_PER_CLOCK, ISSUE_PER_CLOCK = 132, 64, 128
+INT_ALU_OPS = {"LOP3", "PLOP3", "ISETP", "SEL", "SHF", "IMNMX", "VIMNMX", "IADD3", "IABS"}
+# Without cuobjdump: 32-bit integer operations per env-ply counted from
+# csrc/rollout.cu in Philox mode, one per arithmetic, logic, compare or
+# select of the source, each once in the scope its operands vary in, at the
+# issue rate.  The compiler fuses some of them (three-input LOP3 and IADD3),
+# so this count lies above the compiled one, and its floor above the SASS
+# floor.
 OPS_PER_PLY = {
-    "philox: 14 blocks x 60, 10 shared by the blocks, 4 unused": 14 * 60 + 10 - 4,
-    "player sign": 2,
-    "cell pass (top piece, size, frozen bits): 9 cells x 27": 9 * 27,
-    "legality 129, then draw and running max: 54 actions x 5": 129 + 54 * 5,
-    "placement: target 11, then 27 cells x 4": 11 + 27 * 4,
-    "top pieces after the move: 9 cells x 4": 9 * 4,
-    "win fold: 18 sign tests, then 8 lines x 7": 18 + 8 * 7,
-    "counts 8 and reset 27": 8 + 27,
-    "ply loop": 2,
+    "philox: 11 blocks x 60, 10 shared by the blocks": 11 * 60 + 10,
+    "draws to bits 8-31: 7 per block, 1 unused": 11 * 7 - 1,
+    "keys: or the code, 54 actions": 54,
+    "legality: shift and test, 54 actions x 2": 54 * 2,
+    "max of the legal keys: 54": 54,
+    "occupancy 3, covering levels 3, free cells 2, legal words 2 x 7": 3 + 3 + 2 + 2 * 7,
+    "placement: decode 4, masks 6, update 4": 4 + 6 + 4,
+    "winner: occupancy 6, top cells 2 x 6, table 2, done and counts 8": 6 + 2 * 6 + 2 + 8,
+    "swap and reset 4, player 2, ply loop 2": 4 + 2 + 2,
 }
-# once per env: key schedule 18, per-block constants 70, warp reduction 30
-OPS_PER_ENV = 18 + 70 + 30
+
+
+def smi_query(fields: str) -> str:
+    """One line of ``nvidia-smi --query-gpu=<fields>`` for the first card."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_functions(lib: Path) -> dict[str, list[tuple[int, str, str]]]:
+    """``{mangled name: [(address, opcode, operands), ...]}`` of every kernel
+    in ``lib``, from ``cuobjdump -sass`` beside ``nvcc`` (which gives branch
+    targets as addresses).  Raises FileNotFoundError if there is none."""
+    from gobblet_rl_torch.kernels import build
+
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    funcs: dict[str, list[tuple[int, str, str]]] = {}
+    body = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            body = funcs.setdefault(line.split("Function :", 1)[1].strip(), [])
+        elif body is not None and (m := _INSN.search(line)):
+            body.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def sass_loop(lib: Path, function: str) -> dict:
+    """The largest loop of the kernel whose mangled name contains
+    ``function``: the span from a backward branch's target to the branch.
+    Returns ``{"kernel", "instructions", "opcodes"}``, counting every
+    instruction of the span but ``NOP``: the issue slots one pass takes.
+    Raises if the span holds another branch, which would make the count
+    depend on the path taken."""
+    matches = {k: v for k, v in sass_functions(lib).items() if function in k}
+    if len(matches) != 1:
+        raise RuntimeError(f"{len(matches)} kernels in {lib.name} match {function!r}")
+    (kernel, body), = matches.items()
+    best: list[tuple[int, str, str]] = []
+    for addr, op, args in body:
+        m = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and m and int(m.group(1), 16) < addr:
+            span = [x for x in body if int(m.group(1), 16) <= x[0] <= addr and x[1] != "NOP"]
+            if len(span) > len(best):
+                best = span
+    if not best:
+        raise RuntimeError(f"no loop in {kernel}")
+    ops = collections.Counter(op.split(".")[0] for _, op, _ in best)
+    if ops["BRA"] != 1:
+        raise RuntimeError(f"the loop of {kernel} holds {ops['BRA']} branches, not 1")
+    return {"kernel": kernel, "instructions": len(best), "opcodes": dict(ops.most_common())}
+
+
+def sass_counts(lib: Path) -> tuple[int, int, dict] | None:
+    """(instructions, of them on the integer ALU pipe, opcode counts) of the
+    Philox-mode ply loop in the built library ``lib``, or None if the
+    toolkit has no cuobjdump."""
+    try:
+        loop = sass_loop(lib, "rollout_kernelILb0E")
+    except FileNotFoundError:
+        return None
+    alu = sum(n for op, n in loop["opcodes"].items() if op in INT_ALU_OPS)
+    return loop["instructions"], alu, loop["opcodes"]
+
+
+def issue_floor_ms(per_ply: int, alu_per_ply: int, env_plies: int, sm_mhz: float) -> float:
+    """The larger of the ALU-pipe floor and the issue floor, in ms."""
+    clocks = env_plies * max(alu_per_ply / INT_ALU_PER_CLOCK, per_ply / ISSUE_PER_CLOCK)
+    return 1e3 * clocks / (sm_mhz * 1e6 * SMS)
 
 
 def log(msg: str) -> None:
@@ -112,44 +205,63 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device -------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_query("name,power.limit")
+    sm_mhz = float(smi_query("clocks.max.sm").split()[0])
     kind = torch.cuda.get_device_name(0)
     log(smi)
     log(f"# device {kind}; python {sys.version.split()[0]}; torch {torch.__version__}; "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda}; SM clock max {sm_mhz:.0f} MHz")
 
-    # 2. build --------------------------------------------------------------
+    # 2. build, registers, occupancy and the ply loop's instructions --------
     t0 = time.perf_counter()
     lib, nvcc_log = build.build("rollout")
     log(f"# build: rollout in {time.perf_counter() - t0:.2f}s -> {lib.name}")
     for line in nvcc_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"#   {line.strip()}")
+    check(all(n == "0" for n in re.findall(r"(\d+) bytes spill", nvcc_log)),
+          "ptxas reports no spills")
+    occupancy = build.load("rollout").gobblet_rollout_blocks_per_sm
+    occupancy.argtypes, occupancy.restype = [ctypes.c_int], ctypes.c_int
+    per_sm = [occupancy(mode) for mode in (0, 1)]
+    blocks = -(-ROLLOUT_B // 256)
+    log(f"# blocks per SM (philox, field): {per_sm}; {blocks} blocks of 256 at B={ROLLOUT_B} "
+        f"= {blocks / (SMS * per_sm[0]):.2f} waves over {SMS} SMs")
+    counts = sass_counts(lib)
+    if counts is not None:
+        sass, sass_alu, opcodes = counts
+        log(f"# sass: {sass} instructions per env-ply in the philox ply loop, {sass_alu} on "
+            f"the integer ALU pipe; {json.dumps(opcodes)}")
+    else:
+        log(f"# sass: not measured (no cuobjdump beside nvcc); bound from the source count "
+            f"{sum(OPS_PER_PLY.values())} per env-ply at the issue rate")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
     # 3. kernel vs plain version, small batch -------------------------------
-    start, _ = bc.rollout_random(bc.reset_planes(CHECK_B, dev), gen, 5)  # mid-game states
-    board, cur = start.board.contiguous(), start.current.contiguous()
     field = torch.randint(-2**31, 2**31, (CHECK_STEPS, 54, CHECK_B), dtype=torch.int32,
                           device=dev, generator=gen).view(torch.uint32)
-    # the ragged batch leaves the last block of 256 threads partly empty
-    for mode, n, draws, seed in (("field", CHECK_B, field, 0), ("philox", CHECK_B, None, 7),
-                                 ("philox", RAGGED_B, None, 3)):
-        b, c = board[..., :n].contiguous(), cur[:n].contiguous()
-        kb, kc, ks = R.rollout_random_fused(b, c, CHECK_STEPS, seed=seed, draws=draws)
-        ref = field if draws is not None else R.philox_field(seed, CHECK_STEPS, n, dev)
-        pb, pc, ps = R.rollout_random_fused_plain(b, c, CHECK_STEPS, ref)
-        torch.cuda.synchronize()
-        check(torch.equal(kb, pb) and torch.equal(kc, pc), f"{mode}: kernel state == plain")
-        for k in ks:
-            check(int(ks[k]) == int(ps[k]), f"{mode}: kernel {k} == plain")
-        log(f"# check {mode} B={n} plies={CHECK_STEPS}: bit-identical (tolerance 0), "
-            f"episodes={int(ks['episodes'])}")
+    # mid-game states after 5 plies, and deep ones after 40 whose boards carry
+    # covered and frozen pieces; the ragged batch leaves the last block of
+    # 256 threads partly empty
+    for start_plies in (5, 40):
+        start, _ = bc.rollout_random(bc.reset_planes(CHECK_B, dev), gen, start_plies)
+        board, cur = start.board.contiguous(), start.current.contiguous()
+        covered = int(((board[0] != 0) & (board[1] != 0)).sum())
+        for mode, n, draws, seed in (("field", CHECK_B, field, 0), ("philox", CHECK_B, None, 7),
+                                     ("philox", RAGGED_B, None, 3)):
+            b, c = board[..., :n].contiguous(), cur[:n].contiguous()
+            kb, kc, ks = R.rollout_random_fused(b, c, CHECK_STEPS, seed=seed, draws=draws)
+            ref = draws if draws is not None else R.philox_field(seed, CHECK_STEPS, n, dev)
+            pb, pc, ps = R.rollout_random_fused_plain(b, c, CHECK_STEPS, ref)
+            torch.cuda.synchronize()
+            what = f"{mode} from {start_plies} plies, B={n}"
+            check(torch.equal(kb, pb) and torch.equal(kc, pc), f"{what}: kernel state == plain")
+            for k in ks:
+                check(int(ks[k]) == int(ps[k]), f"{what}: kernel {k} == plain")
+            log(f"# check {what}, plies={CHECK_STEPS}: bit-identical (tolerance 0), "
+                f"episodes={int(ks['episodes'])}, covered small pieces at start={covered}")
     del field
 
     # 4 + 5. the main path; the launch counts cover exactly these phases ----
@@ -246,8 +358,14 @@ def main() -> int:
     del field
 
     nbytes = ROLLOUT_B * (27 + 4) * 2 + 3 * 8
-    ops = ROLLOUT_B * (ROLLOUT_STEPS * sum(OPS_PER_PLY.values()) + OPS_PER_ENV)
-    bytes_ms, ops_ms = 1e3 * nbytes / PEAK_HBM_BYTES, 1e3 * ops / PEAK_32BIT_OPS
+    env_plies = ROLLOUT_B * ROLLOUT_STEPS
+    if counts is not None:
+        ops_ms = issue_floor_ms(sass, sass_alu, env_plies, sm_mhz)
+    else:  # the source count, all of it at the issue rate
+        ops_ms = issue_floor_ms(sum(OPS_PER_PLY.values()), 0, env_plies, sm_mhz)
+    bytes_ms = 1e3 * nbytes / PEAK_HBM_BYTES
+    log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "
+        f"{ops_ms / statistics.median(kernel_ms):.1%} of the larger")
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "rollout_random_fused",
@@ -261,6 +379,7 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,
+        "sass_per_env_ply": sass if counts is not None else "not measured",
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

@@ -9,28 +9,49 @@
 // board with player 0 to move.  The TPU kernel's blocks are not carried
 // over: here one thread owns one env for all plies.
 //
-// What bounds it on this card: integer ALU, not memory.  A call reads and
-// writes 31 B per env (27-byte board + int32 player) once, while each ply
-// spends about 1,760 integer operations: ~850 on 14 Philox4x32-10 blocks
-// (54 draws) and ~900 on the 54-action mask, placement and win fold
-// (itemised in chip_smoke.py).
+// What bounds it on this card: integer instruction issue, not memory.  A
+// call reads and writes 31 B per env once, while each ply runs several
+// hundred 32-bit integer instructions (chip_smoke.py counts them in the
+// built code, per ply, and divides by the SMs' integer rate).  The kernel
+// can only go faster by executing fewer instructions per env-ply:
 //
-// What the simple design does about it:
-//  * the board lives in 27 registers for the whole call, so device memory
-//    is touched only at the start and the end (coalesced: env is the
-//    fastest axis of every array);
-//  * nothing is indexed by a runtime value: placement is an unrolled select
-//    over the 27 cells, the 54 actions fold into a running (max, index)
-//    pair in an unrolled loop with no per-action array, and the frozen
-//    pieces are a bitmask -- so nothing spills to local memory;
-//  * the random bits are Philox4x32-10 keyed on (seed, env) with counter
-//    (ply, chunk), computed in registers (no state, no memory traffic);
-//  * one thread per env and 256 threads per block give 2048 blocks at the
-//    full-width batch, enough to fill all SMs; the ragged edge is masked;
-//  * stats reduce within each warp by shuffles, then across the block in
-//    shared memory, then one 64-bit atomicAdd per counter per block.
-// Field mode reads pre-drawn uint32[num_steps, 54, B] words in place of
-// Philox (the parity tests); the selection rule is the same.
+//  1. Bitboards.  An env's state is four words: for the player to move (A)
+//     and the other (B), word k holds the 9-cell masks of piece ids 1+k,
+//     3+k and 5+k at bit offsets 0, 10 and 20 (id 2l+1+k lives on level l;
+//     bit 9 of each field is a guard).  The OR of the four words is every
+//     level's occupancy at once; one shift pair gives what covers each
+//     level, so the free cells for every size and the frozen pieces are a
+//     handful of word operations, the same as _legal_mask's
+//     `top == 0 || size > top_size` and `cov_i`.  Placement overwrites one
+//     field with `1 << cell`.  The int8 board is converted with selects at
+//     the start and the end only; no array is indexed by a runtime value.
+//     The mover's and the other's words swap every ply, so nothing selects
+//     on the player to move.
+//  2. Winner from line masks.  Each player's topmost-piece mask indexes a
+//     512-entry table in shared memory (built by the block at start) that
+//     gives its 8-bit mask of completed lines, bit i for WIN_LINES[i].  The
+//     two masks share no bit, so "the last matching line decides" is the
+//     larger mask (eight line tests in registers measured slower).
+//  3. One max over packed keys.  Action a's key is (draw << 8) | (255 -
+//     code(a)), code = 64*level + 32*k + cell, which rises with a; the
+//     largest legal key is the largest draw with the lowest index on ties,
+//     and its low byte names the piece and the cell.  An illegal action's
+//     key is zeroed by an all-ones-or-zero mask (one PRMT from the legal
+//     word) and the keys fold in pairs with Hopper's three-way DPX max
+//     __vimax3_u32 (a max under `if (legal)` compiles to compares and
+//     selects per action and measured slower).  Shifting a draw up by 8
+//     drops the neighbouring draw's bits for free.
+//  4. 11 Philox4x32-10 blocks a ply, counter (ply, block, 0, 0) and key
+//     (seed, env): each 128-bit block gives five 24-bit draws at bit offsets
+//     0, 24, 48, 72 and 96 (__funnelshift_r across word boundaries).
+//  5. __launch_bounds__(256, 4): at most 64 registers, four blocks (32
+//     warps) an SM, no spills (three and five blocks measured within the
+//     spread between runs); the episode counts add up per thread in two
+//     registers (P2 wins are episodes minus P1 wins).
+// Stats reduce within each warp by shuffles, then across the block in
+// shared memory, then one 64-bit atomicAdd per counter per block.  Field
+// mode reads pre-drawn uint32[num_steps, 54, B] words (draw = word >> 8) in
+// place of Philox (the parity tests); the selection rule is the same.
 
 #include <cstddef>
 #include <cstdint>
@@ -40,8 +61,13 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMinBlocks = 4;  // blocks per SM: at most 64 registers a thread
 constexpr int kActions = 54;
-constexpr int kChunks = 14;  // Philox blocks per ply: 4 words each, 56 >= 54
+constexpr int kDraws = 5;    // 24-bit draws per Philox block
+constexpr int kChunks = 11;  // Philox blocks per ply: 55 draws >= 54 actions
+constexpr int kStride = 10;  // bit offset between levels in a word
+constexpr uint32_t kCells = 0x1FFu | (0x1FFu << kStride) | (0x1FFu << 2 * kStride);
+constexpr uint32_t kGuards = kCells + (0x001u | (0x001u << kStride) | (0x001u << 2 * kStride));
 
 constexpr uint32_t kM0 = 0xD2511F53u;
 constexpr uint32_t kM1 = 0xCD9E8D57u;
@@ -67,55 +93,91 @@ __device__ __forceinline__ Words philox4x32_10(Words c, uint32_t k0, uint32_t k1
   return c;
 }
 
-__device__ __forceinline__ uint32_t word(const Words& r, int j) {
-  return j == 0 ? r.x : j == 1 ? r.y : j == 2 ? r.z : r.w;
+// Draw j (24 bits at bit 24*j of the block) shifted to bits 8..31.
+__device__ __forceinline__ uint32_t draw_hi(const Words& r, int j) {
+  switch (j) {
+    case 0: return r.x << 8;
+    case 1: return __funnelshift_r(r.x, r.y, 24) << 8;
+    case 2: return __funnelshift_r(r.y, r.z, 16) << 8;
+    case 3: return r.z & 0xFFFFFF00u;
+    default: return r.w << 8;
+  }
 }
 
-// One win line of the fold: a matching line overwrites the running winner,
-// so the LAST matching line in reference order decides.
-__device__ __forceinline__ int fold_line(int w, int a, int b, int c) {
-  const int lw = int(a > 0 && b > 0 && c > 0) - int(a < 0 && b < 0 && c < 0);
-  return lw != 0 ? lw : w;
+// All ones if bit `b` (a constant after unrolling) of `v` is set, else 0:
+// shift the bit to the top of a byte, then one PRMT replicates that byte's
+// sign over the word.
+__device__ __forceinline__ uint32_t bit_mask(uint32_t v, int b) {
+  const int s = (7 - b % 8 + 8) % 8;
+  uint32_t m;
+  asm("prmt.b32 %0, %1, %1, %2;" : "=r"(m) : "r"(v << s), "r"(0x8888u | 0x1111u * ((b + s) / 8)));
+  return m;
 }
 
-__device__ __forceinline__ int top_piece(const int* b, int c) {
-  return b[18 + c] != 0 ? b[18 + c] : (b[9 + c] != 0 ? b[9 + c] : b[c]);
+// Fields of `x` (10 bits apart) that are non-zero become 0x1FF, others 0.
+__device__ __forceinline__ uint32_t spread(uint32_t x) {
+  const uint32_t h = (x + kCells) & kGuards;
+  return h - (h >> 9);
+}
+
+// Bit i set when the cells of WIN_LINES[i] are all in `top`.
+__device__ __forceinline__ uint32_t line_mask(uint32_t top) {
+  // WIN_LINES (core/types.py) as 9-bit cell masks, in reference order
+  constexpr uint32_t kLines[8] = {0007, 0070, 0700, 0111, 0222, 0444, 0421, 0124};
+  uint32_t m = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) m |= ((top & kLines[i]) == kLines[i]) ? 1u << i : 0u;
+  return m;
+}
+
+// The 9-bit mask of cells whose topmost piece is in `own` (levels packed).
+__device__ __forceinline__ uint32_t top_cells(uint32_t own, uint32_t above) {
+  const uint32_t vis = own & ~above;
+  return (vis | (vis >> kStride) | (vis >> 2 * kStride)) & 0x1FFu;
 }
 
 template <bool kField>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 rollout_kernel(const int8_t* __restrict__ board_in, const int32_t* __restrict__ cur_in,
                int8_t* __restrict__ board_out, int32_t* __restrict__ cur_out,
                unsigned long long* __restrict__ stats, const uint32_t* __restrict__ field,
                int n, int num_steps, uint32_t seed) {
   const int env = blockIdx.x * kThreads + threadIdx.x;
-  int eps = 0, w1 = 0, w2 = 0;
+  __shared__ uint8_t lines[512];
+  for (int m = threadIdx.x; m < 512; m += kThreads) lines[m] = static_cast<uint8_t>(line_mask(m));
+  __syncthreads();
+  int eps = 0, w1 = 0;
 
   if (env < n) {
-    int b[27];  // level-major: b[level * 9 + cell]
+    // int8 board -> X and O words
+    uint32_t x0 = 0, x1 = 0, o0 = 0, o1 = 0;
 #pragma unroll
-    for (int i = 0; i < 27; ++i) b[i] = board_in[static_cast<size_t>(i) * n + env];
-    int cur = cur_in[env];
-
-    for (int t = 0; t < num_steps; ++t) {
-      const int sign = cur == 0 ? 1 : -1;
-
-      // topmost piece and its size per cell; frozen own pieces as bits 1..6
-      int top[9], top_size[9];
-      uint32_t frozen = 0;
+    for (int l = 0; l < 3; ++l) {
 #pragma unroll
       for (int c = 0; c < 9; ++c) {
-        top[c] = top_piece(b, c);
-        top_size[c] = (abs(top[c]) + 1) >> 1;
-        const int v0 = b[c] * sign, v1 = b[9 + c] * sign;
-        const bool cov0 = b[c] != 0 && (b[9 + c] != 0 || b[18 + c] != 0);
-        const bool cov1 = b[9 + c] != 0 && b[18 + c] != 0;
-        if (cov0 && (v0 == 1 || v0 == 2)) frozen |= 1u << v0;
-        if (cov1 && (v1 == 3 || v1 == 4)) frozen |= 1u << v1;
+        const int v = board_in[static_cast<size_t>(l * 9 + c) * n + env];
+        const uint32_t bit = 1u << (kStride * l + c);
+        x0 |= v == 2 * l + 1 ? bit : 0u;
+        x1 |= v == 2 * l + 2 ? bit : 0u;
+        o0 |= v == -(2 * l + 1) ? bit : 0u;
+        o1 |= v == -(2 * l + 2) ? bit : 0u;
       }
+    }
+    int cur = cur_in[env];
+    uint32_t a0 = cur == 0 ? x0 : o0, a1 = cur == 0 ? x1 : o1;  // player to move
+    uint32_t b0 = cur == 0 ? o0 : x0, b1 = cur == 0 ? o1 : x1;  // the other
 
-      // fold the 54 actions into the running (max draw, lowest index)
-      int best = -1, best_a = 99;
+#pragma unroll 1
+    for (int t = 0; t < num_steps; ++t) {
+      // legal actions: free cells per level, minus the mover's frozen ids
+      const uint32_t occ = a0 | a1 | b0 | b1;
+      const uint32_t above = (occ >> kStride) | (occ >> 2 * kStride);
+      const uint32_t free = ~(occ | above) & kCells;
+      const uint32_t leg0 = free & ~spread(a0 & above);
+      const uint32_t leg1 = free & ~spread(a1 & above);
+
+      // one max over the packed keys of the legal actions
+      uint32_t best = 0, pending = 0;
 #pragma unroll
       for (int chunk = 0; chunk < kChunks; ++chunk) {
         Words r{0u, 0u, 0u, 0u};
@@ -124,61 +186,78 @@ rollout_kernel(const int8_t* __restrict__ board_in, const int32_t* __restrict__ 
                             seed, static_cast<uint32_t>(env));
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int a = chunk * 4 + j;
+        for (int j = 0; j < kDraws; ++j) {
+          const int a = chunk * kDraws + j;
           if (a < kActions) {
-            const int pos = a % 9, piece = a / 9 + 1, size = (piece + 1) >> 1;
-            const bool legal = (top[pos] == 0 || size > top_size[pos]) &&
-                               !((frozen >> piece) & 1u);
-            uint32_t bits;
+            const int l = a / 18, k = (a / 9) % 2, cell = a % 9;
+            uint32_t hi;
             if constexpr (kField) {
-              bits = field[(static_cast<size_t>(t) * kActions + a) * n + env];
+              hi = field[(static_cast<size_t>(t) * kActions + a) * n + env] & 0xFFFFFF00u;
             } else {
-              bits = word(r, j);
+              hi = draw_hi(r, j);
             }
-            const int draw = legal ? static_cast<int>(bits >> 8) : -1;
-            if (draw > best) {
-              best = draw;
-              best_a = a;
+            const uint32_t key = hi | (255u - (64u * l + 32u * k + cell));
+            const uint32_t gated = key & bit_mask(k ? leg1 : leg0, kStride * l + cell);
+            if (a % 2 == 0) {
+              pending = gated;
+            } else {
+              best = __vimax3_u32(best, pending, gated);
             }
           }
         }
       }
 
-      // lift the moving piece from wherever it was, place it at the target
-      const int piece = best_a / 9 + 1;
-      const int target = (((piece + 1) >> 1) - 1) * 9 + best_a % 9;
-      const int moved = piece * sign;
-#pragma unroll
-      for (int i = 0; i < 27; ++i) b[i] = i == target ? moved : (b[i] == moved ? 0 : b[i]);
+      // lift + place: the chosen id's field becomes the target cell
+      const uint32_t code = ~best & 0xFFu;
+      const uint32_t l = code >> 6, cell = code & 31u;
+      const uint32_t clear = ~(0x1FFu << (kStride * l)), bit = 1u << (kStride * l + cell);
+      if (code & 32u) {
+        a1 = (a1 & clear) | bit;
+      } else {
+        a0 = (a0 & clear) | bit;
+      }
 
-#pragma unroll
-      for (int c = 0; c < 9; ++c) top[c] = top_piece(b, c);
-      int win = 0;
-      win = fold_line(win, top[0], top[1], top[2]);
-      win = fold_line(win, top[3], top[4], top[5]);
-      win = fold_line(win, top[6], top[7], top[8]);
-      win = fold_line(win, top[0], top[3], top[6]);
-      win = fold_line(win, top[1], top[4], top[7]);
-      win = fold_line(win, top[2], top[5], top[8]);
-      win = fold_line(win, top[0], top[4], top[8]);
-      win = fold_line(win, top[2], top[4], top[6]);
-
-      const bool done = win != 0;
+      // winner: compare the two players' completed-line masks
+      const uint32_t own_a = a0 | a1, own_b = b0 | b1;
+      const uint32_t occ2 = own_a | own_b;
+      const uint32_t above2 = (occ2 >> kStride) | (occ2 >> 2 * kStride);
+      const uint32_t la = lines[top_cells(own_a, above2)], lb = lines[top_cells(own_b, above2)];
+      const bool done = (la | lb) != 0;
       eps += done;
-      w1 += win == 1;
-      w2 += win == -1;
-#pragma unroll
-      for (int i = 0; i < 27; ++i) b[i] = done ? 0 : b[i];
+      w1 += done && ((la > lb) == (cur == 0));
+
+      // the other player moves next; a finished game restarts empty, P1 first
+      const uint32_t na0 = a0, na1 = a1;
+      a0 = done ? 0u : b0;
+      a1 = done ? 0u : b1;
+      b0 = done ? 0u : na0;
+      b1 = done ? 0u : na1;
       cur = done ? 0 : 1 - cur;
     }
 
+    // X and O words -> int8 board
+    x0 = cur == 0 ? a0 : b0;
+    x1 = cur == 0 ? a1 : b1;
+    o0 = cur == 0 ? b0 : a0;
+    o1 = cur == 0 ? b1 : a1;
 #pragma unroll
-    for (int i = 0; i < 27; ++i) board_out[static_cast<size_t>(i) * n + env] = static_cast<int8_t>(b[i]);
+    for (int l = 0; l < 3; ++l) {
+#pragma unroll
+      for (int c = 0; c < 9; ++c) {
+        const int s = kStride * l + c;
+        const int v = (x0 >> s) & 1u   ? 2 * l + 1
+                      : (x1 >> s) & 1u ? 2 * l + 2
+                      : (o0 >> s) & 1u ? -(2 * l + 1)
+                      : (o1 >> s) & 1u ? -(2 * l + 2)
+                                       : 0;
+        board_out[static_cast<size_t>(l * 9 + c) * n + env] = static_cast<int8_t>(v);
+      }
+    }
     cur_out[env] = cur;
   }
 
   // every thread of the block reaches the reduction, in range or not
+  int w2 = eps - w1;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     eps += __shfl_down_sync(0xffffffffu, eps, o);
@@ -228,4 +307,16 @@ extern "C" int gobblet_rollout_launch(const void* board_in, const void* cur_in, 
     rollout_kernel<false><<<grid, kThreads, 0, s>>>(bi, ci, bo, co, st, f, n, num_steps, seed);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of the field-mode (`field_mode` != 0) or Philox
+// kernel on the current device, or -1 if the runtime cannot say.
+extern "C" int gobblet_rollout_blocks_per_sm(int field_mode) {
+  int blocks = -1;
+  const cudaError_t err =
+      field_mode ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rollout_kernel<true>,
+                                                                 kThreads, 0)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rollout_kernel<false>,
+                                                                 kThreads, 0);
+  return err == cudaSuccess ? blocks : -1;
 }

@@ -6,11 +6,14 @@ Port of ``gobblet_rl_tpu/ops/pallas_rollout.py``.  The kernel
 with the board in registers; its note says what bounds it and why.
 
 Random bits: Philox4x32-10 keyed on ``(seed, env)`` with counter
-``(ply, chunk, 0, 0)``; word ``j`` of chunk ``c`` is the draw of action
-``4c + j``.  :func:`philox_field` computes the same words as a tensor, so the
-plain version fed with it reproduces the kernel bit for bit.  Selection
-rule (as the TPU kernel): for each legal action take ``bits >> 8``, give
-illegal actions -1, take the max, and break ties toward the lowest index.
+``(ply, chunk, 0, 0)``, 11 blocks a ply.  Read as one 128-bit little-endian
+number ``w:z:y:x``, block ``c`` holds five 24-bit draws at bit offsets 0,
+24, 48, 72 and 96: draw ``j`` is action ``5c + j`` (bits 120-127 and the
+fifth draw of block 10 are unused).  :func:`philox_field` gives each draw as
+the word ``draw << 8``, so the plain version fed with it reproduces the
+kernel bit for bit.  Selection rule (as the TPU kernel): for each legal
+action take ``bits >> 8``, give illegal actions -1, take the max, and break
+ties toward the lowest index.
 
 :func:`rollout_random_fused` launches the kernel for CUDA tensors and runs
 the plain version only for CPU tensors; it never falls back.
@@ -27,7 +30,7 @@ from gobblet_rl_torch.kernels import build
 from gobblet_rl_torch.ops import batched_core as bc
 
 NUM_ACTIONS = 54
-_CHUNKS = 14  # Philox blocks per ply (56 words >= 54 actions)
+_CHUNKS = 11  # Philox blocks per ply (5 draws each: 55 >= 54 actions)
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
@@ -56,17 +59,20 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
 
 
 def philox_field(seed: int, num_steps: int, batch: int, device) -> torch.Tensor:
-    """uint32[num_steps, 54, B]: the words the kernel draws in Philox mode
-    for ``seed`` (env fastest)."""
+    """uint32[num_steps, 54, B]: ``draw << 8`` for each draw the kernel
+    takes in Philox mode for ``seed`` (env fastest)."""
     dev = torch.device(device)
     k0 = seed & _MASK32
     k1 = torch.arange(batch, dtype=torch.int64, device=dev)[None]
     chunk = torch.arange(_CHUNKS, dtype=torch.int64, device=dev)[:, None].expand(_CHUNKS, batch)
     zero = torch.zeros((_CHUNKS, batch), dtype=torch.int64, device=dev)
     out = torch.empty((num_steps, NUM_ACTIONS, batch), dtype=torch.int32, device=dev)
+    d24 = 0xFFFFFF
     for t in range(num_steps):
-        words = torch.stack(philox4x32_10(zero + t, chunk, zero, zero, k0, k1), dim=1)
-        words = words.reshape(4 * _CHUNKS, batch)[:NUM_ACTIONS]
+        x, y, z, w = philox4x32_10(zero + t, chunk, zero, zero, k0, k1)
+        draws = torch.stack([x & d24, ((x >> 24) | (y << 8)) & d24,
+                             ((y >> 16) | (z << 16)) & d24, z >> 8, w & d24], dim=1)
+        words = draws.reshape(5 * _CHUNKS, batch)[:NUM_ACTIONS] << 8
         out[t] = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
     return out.view(torch.uint32)
 

@@ -1,9 +1,11 @@
 """Port parity for the fused rollout: the plain version of the CUDA kernel
 (gobblet_rl_torch.kernels.rollout) against a JAX loop built from the Pallas
 kernel's own helpers, bit for bit under one injected numpy field; the
-Philox generator against known answers; and the CPU dispatch of the
-wrapper.  The CUDA kernel itself is held against the plain version on the
-card by chip_smoke.py.
+Philox generator against known answers and its five-draws-a-block layout;
+a numpy model of the kernel's bitboard algebra (legal mask, line masks,
+packed keys, the whole ply) against the Pallas helpers and the plain
+version; and the CPU dispatch of the wrapper.  The CUDA kernel itself is
+held against the plain version on the card by chip_smoke.py.
 """
 
 import jax
@@ -129,15 +131,173 @@ def test_philox_known_answers(ctr, key, want):
 
 
 def test_philox_field_layout():
-    """Word j of block (ply, chunk) keyed on (seed, env) is action 4*chunk+j."""
+    """Block (ply, chunk) keyed on (seed, env) holds five 24-bit draws at bit
+    offsets 0, 24, 48, 72, 96 of the 128-bit number w:z:y:x; draw j is action
+    5*chunk + j, and the field word is draw << 8."""
     seed, steps, B = 12345, 3, 5
     field = R.philox_field(seed, steps, B, CPU)
     assert field.dtype == torch.uint32 and tuple(field.shape) == (steps, 54, B)
     f = field.view(torch.int32).numpy().view(np.uint32)
-    for t, a, env in ((0, 0, 0), (2, 53, 4), (1, 17, 2)):
-        c = [torch.tensor([x], dtype=torch.int64) for x in (t, a // 4, 0, 0)]
-        words = R.philox4x32_10(*c, seed, torch.tensor([env], dtype=torch.int64))
-        assert int(f[t, a, env]) == int(words[a % 4][0])
+    for t in range(steps):
+        for env in range(B):
+            for chunk in range(11):
+                c = [torch.tensor([x], dtype=torch.int64) for x in (t, chunk, 0, 0)]
+                words = R.philox4x32_10(*c, seed, torch.tensor([env], dtype=torch.int64))
+                big = sum(int(w[0]) << (32 * i) for i, w in enumerate(words))
+                for j in range(5):
+                    a = 5 * chunk + j
+                    if a < 54:
+                        draw = (big >> (24 * j)) & 0xFFFFFF
+                        assert int(f[t, a, env]) == draw << 8
+
+
+# A numpy model of the kernel's bitboard algebra (csrc/rollout.cu, items 1-3
+# of its note), held against the Pallas kernel's helpers.
+STRIDE = 10
+CELLS = sum(0x1FF << STRIDE * lv for lv in range(3))
+GUARDS = CELLS + sum(1 << STRIDE * lv for lv in range(3))
+LINES = [sum(1 << int(c) for c in line) for line in pr._WIN_LINES]
+
+
+def to_words(board27, sign):
+    """Mover's words a0, a1 and the other's b0, b1 (uint64 [B]): word k holds
+    piece id 2l+1+k's cells at bit 10*l."""
+    words = [np.zeros(board27.shape[1], np.uint64) for _ in range(4)]
+    for lv in range(3):
+        for c in range(9):
+            v = board27[9 * lv + c].astype(np.int64) * sign
+            bit = np.uint64(1 << (STRIDE * lv + c))
+            for i, want in enumerate((2 * lv + 1, 2 * lv + 2, -(2 * lv + 1), -(2 * lv + 2))):
+                words[i] |= np.where(v == want, bit, np.uint64(0))
+    return words
+
+
+def spread(x):
+    h = (x + np.uint64(CELLS)) & np.uint64(GUARDS)
+    return h - (h >> np.uint64(9))
+
+
+def model_legal(a0, a1, b0, b1):
+    """bool[54, B] from the words: free cells per level minus frozen ids."""
+    occ = a0 | a1 | b0 | b1
+    above = (occ >> np.uint64(STRIDE)) | (occ >> np.uint64(2 * STRIDE))
+    free = ~(occ | above) & np.uint64(CELLS)
+    leg = [free & ~spread(a0 & above), free & ~spread(a1 & above)]
+    return np.stack([(leg[(a // 9) % 2] >> np.uint64(STRIDE * (a // 18) + a % 9)) & np.uint64(1)
+                     for a in range(54)]).astype(bool)
+
+
+def model_top(own, above):
+    vis = own & ~above
+    return (vis | (vis >> np.uint64(STRIDE)) | (vis >> np.uint64(2 * STRIDE))) & np.uint64(0x1FF)
+
+
+def model_lines(top):
+    return sum(((top & np.uint64(m)) == np.uint64(m)).astype(np.int64) << i
+               for i, m in enumerate(LINES))
+
+
+def model_key(draw24, a):
+    """The kernel's packed key: draw in bits 8-31, 255 - code(a) below."""
+    code = 64 * (a // 18) + 32 * ((a // 9) % 2) + a % 9
+    return (draw24.astype(np.uint64) << np.uint64(8)) | np.uint64(255 - code)
+
+
+@pytest.mark.parametrize("plies,seed", [(3, 11), (14, 12), (40, 13)])
+def test_bitboard_legal_mask_matches_pallas(plies, seed):
+    """Occupancy, free-by-size and frozen from the words equal _legal_mask,
+    and each player's topmost cells equal _flat's, on reachable states."""
+    board, cur = start_state(128, plies, seed)
+    b27 = board.numpy().reshape(27, -1).astype(np.int32)
+    sign = np.where(cur.numpy() == 0, 1, -1)
+    a0, a1, b0, b1 = to_words(b27, sign)
+    want = np.asarray(pr._legal_mask(jnp.asarray(b27), jnp.asarray(sign[None])))
+    np.testing.assert_array_equal(model_legal(a0, a1, b0, b1), want)
+    occ = a0 | a1 | b0 | b1
+    above = (occ >> np.uint64(STRIDE)) | (occ >> np.uint64(2 * STRIDE))
+    flat = np.asarray(pr._flat(jnp.asarray(b27))) * sign
+    for own, sgn in ((a0 | a1, 1), (b0 | b1, -1)):
+        top = model_top(own, above)
+        bits = sum((flat[c] * sgn > 0).astype(np.uint64) << np.uint64(c) for c in range(9))
+        np.testing.assert_array_equal(top, bits)
+    if plies == 40:  # deep states carry covered and frozen pieces
+        assert (spread(a0 & above) | spread(a1 & above)).any()
+
+
+def test_line_masks_match_winner_exhaustively():
+    """All 3**9 top-owner patterns: _winner's last-line-wins fold equals
+    comparing the two players' completed-line masks."""
+    top = np.array(np.meshgrid(*[[-1, 0, 1]] * 9, indexing="ij")).reshape(9, -1).astype(np.int32)
+    want = np.asarray(pr._winner(jnp.asarray(top)))[0]
+    lx = model_lines(sum((top[c] > 0).astype(np.uint64) << np.uint64(c) for c in range(9)))
+    lo = model_lines(sum((top[c] < 0).astype(np.uint64) << np.uint64(c) for c in range(9)))
+    assert not (lx & lo).any()
+    np.testing.assert_array_equal(np.where(lx > lo, 1, np.where(lo > lx, -1, 0)), want)
+
+
+def test_packed_key_max_is_max_draw_lowest_index():
+    """The max of the legal actions' packed keys decodes to the plain
+    version's action (max draw, lowest index on ties), ties included."""
+    rng = np.random.default_rng(21)
+    B = 4096
+    legal = rng.random((54, B)) < 0.3
+    legal[rng.integers(0, 54, B), np.arange(B)] = True
+    for hi in (4, 2**24):  # few distinct draws force ties
+        draw = rng.integers(0, hi, (54, B))
+        d = np.where(legal, draw, -1)
+        want = np.argmax(d == d.max(axis=0), axis=0)
+        keys = np.where(legal, model_key(draw, np.arange(54)[:, None]), np.uint64(0))
+        code = 255 - (keys.max(axis=0) & np.uint64(255)).astype(np.int64)
+        got = 18 * (code >> 6) + 9 * ((code >> 5) & 1) + (code & 31)
+        np.testing.assert_array_equal(got, want)
+
+
+def model_rollout(board, cur, field):
+    """The kernel's ply loop on the words (numpy), for a [steps, 54, B] field."""
+    b27 = board.reshape(27, -1).astype(np.int32)
+    cur = cur.astype(np.int64).copy()
+    a0, a1, b0, b1 = to_words(b27, np.where(cur == 0, 1, -1))
+    eps = w1 = 0
+    for bits in field:
+        keys = np.where(model_legal(a0, a1, b0, b1),
+                        model_key(bits >> 8, np.arange(54)[:, None]), np.uint64(0))
+        code = (~keys.max(axis=0) & np.uint64(255)).astype(np.int64)
+        lv, k, cell = code >> 6, (code >> 5) & 1, code & 31
+        clear = ~(np.uint64(0x1FF) << (STRIDE * lv).astype(np.uint64))
+        bit = np.uint64(1) << (STRIDE * lv + cell).astype(np.uint64)
+        a1 = np.where(k == 1, (a1 & clear) | bit, a1)
+        a0 = np.where(k == 0, (a0 & clear) | bit, a0)
+        occ = a0 | a1 | b0 | b1
+        above = (occ >> np.uint64(STRIDE)) | (occ >> np.uint64(2 * STRIDE))
+        la, lb = model_lines(model_top(a0 | a1, above)), model_lines(model_top(b0 | b1, above))
+        done = (la | lb) != 0
+        eps += int(done.sum())
+        w1 += int((done & ((la > lb) == (cur == 0))).sum())
+        zero = np.uint64(0)
+        a0, a1, b0, b1 = (np.where(done, zero, w) for w in (b0, b1, a0, a1))
+        cur = np.where(done, 0, 1 - cur)
+    x = [np.where(cur == 0, p, q) for p, q in ((a0, b0), (a1, b1), (b0, a0), (b1, a1))]
+    out = np.zeros_like(b27)
+    for lv in range(3):
+        for c in range(9):
+            s = np.uint64(STRIDE * lv + c)
+            vals = (2 * lv + 1, 2 * lv + 2, -(2 * lv + 1), -(2 * lv + 2))
+            for w, v in reversed(list(zip(x, vals))):
+                out[9 * lv + c] = np.where((w >> s) & np.uint64(1), v, out[9 * lv + c])
+    return out.reshape(3, 9, -1).astype(np.int8), cur.astype(np.int32), (eps, w1, eps - w1)
+
+
+@pytest.mark.parametrize("B,steps,seed,start_plies", [(256, 48, 31, 5), (200, 24, 32, 40)])
+def test_bitboard_model_rollout_matches_plain_version(B, steps, seed, start_plies):
+    """The kernel's whole ply (words, packed keys, line masks, swap and
+    reset) modelled in numpy reproduces the plain version bit for bit."""
+    board, cur = start_state(B, start_plies, seed)
+    field = np.random.default_rng(seed).integers(0, 2**32, (steps, 54, B), dtype=np.uint32)
+    mb, mc, mstats = model_rollout(board.numpy(), cur.numpy(), field)
+    tb, tc, ts = R.rollout_random_fused_plain(board, cur, steps, torch.from_numpy(field))
+    np.testing.assert_array_equal(mb, tb.numpy())
+    np.testing.assert_array_equal(mc, tc.numpy())
+    assert mstats == (int(ts["episodes"]), int(ts["wins_p1"]), int(ts["wins_p2"]))
 
 
 def test_wrapper_takes_plain_path_on_cpu():
