@@ -21,7 +21,28 @@ its plain PyTorch version:
 6. the kernel line: launches on the main path (phases 4-5), agreement with
    the plain version at the main path's shape, times and the bound (the
    larger of bytes over HBM bandwidth and the ply loop's instructions over
-   the SMs' integer rates; see the constants below).
+   the SMs' integer rates; see the constants below), printed after 7-11;
+7. the batched depth-2 greedy on 262,144 positions 5 plies deep (1 warm-up,
+   3 calls timed by CUDA events, peak memory); every action legal, and on
+   4,096 positions one injected Gumbel field gives the same actions on the
+   card and on the CPU;
+8. the DQN iteration against the greedy opponent with ``learner_player=
+   "both"`` (phase 5's configuration otherwise): 1 warm-up and 2 timed
+   iterations, each split by CUDA events into collect, fold + insert,
+   sample and updates;
+9. the command line ``example_dqn.main`` with ``--opponent mixed
+   --both-seats --training-num 16384``, one epoch of two iterations with
+   ``--full-resume-dir``, then relaunched with ``--epoch 2``: exactly one
+   more epoch, twice the gradient steps, and the restored payload equal,
+   tensor for tensor, to the saved one;
+10. the vector env: ``vector_reset`` + ``rollout`` with ``random_policy``
+    over 64 plies at B=524,288;
+11. the zoo agent ``dqn_greedy`` on the card: Q-values on 4,096 positions
+    against the CPU's, then 2,048 games against the depth-2 greedy with
+    colours swapped (win rate at least 0.80).
+
+Phases 7-11 each print one JSON line with the card's name and power limit
+and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports no JAX.
@@ -32,10 +53,13 @@ from __future__ import annotations
 import collections
 import ctypes
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +70,9 @@ CHECK_B, CHECK_STEPS, RAGGED_B = 16384, 32, 4099
 DQN = dict(num_envs=262144, buffer_size=4194304, batch_size=4096, segment_len=16,
            update_per_collect=8, n_step=3, opponent="random",
            hidden_sizes=(128, 128, 128, 128), double=True, dueling=True)
+GREEDY_B, GREEDY_PARITY_B, ZOO_GAMES, ZOO_MIN_WIN_RATE = 262144, 4096, 2048, 0.80
+CLI_ARGS = ["--opponent", "mixed", "--both-seats", "--training-num", "16384",
+            "--step-per-epoch", "2"]
 
 # The bound.  Bytes: HBM at 3.35e12 B/s (NVIDIA's H100 SXM data sheet).
 # Operations: the machine instructions of the kernel's ply loop, read from
@@ -189,6 +216,226 @@ def timed(fn, repeats: int):
     return out, ms
 
 
+def cuda_mark(marks: list):
+    """A ``mark`` hook for ``train_iteration``: records a CUDA event per
+    phase name."""
+    def mark(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((name, event))
+    return mark
+
+
+def phase_greedy(smi: str, gen: torch.Generator) -> None:
+    """7. the batched greedy at depth 2."""
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.policies import greedy_jax
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    state, _ = bc.rollout_random(bc.reset_planes(GREEDY_B, dev), gen, 5)
+    board, cur = state.board, state.current
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed(lambda: greedy_jax.greedy_actions(gen, board, cur, 2), 1)
+    actions, ms = timed(lambda: greedy_jax.greedy_actions(gen, board, cur, 2), 3)
+    peak = torch.cuda.max_memory_allocated()
+    mask = bc.legal_mask_planes(board, cur)
+    check(bool(mask[actions.long(), torch.arange(GREEDY_B, device=dev)].all()),
+          "greedy: every action legal")
+    n = GREEDY_PARITY_B
+    field = bc.gumbel_field(gen, (54, n), dev)
+    on_card = greedy_jax.greedy_actions(None, board[..., :n], cur[:n], 2, gumbel=field)
+    on_cpu = greedy_jax.greedy_actions(None, board[..., :n].cpu(), cur[:n].cpu(), 2,
+                                       gumbel=field.cpu())
+    mismatches = int((on_card.cpu() != on_cpu).sum())
+    check(mismatches == 0, "greedy: card == CPU under one injected field")
+    log(json.dumps({"metric": "greedy_depth2_ms", "device": smi, "batch": GREEDY_B,
+                    "plies_deep": 5, "ms_median": statistics.median(ms), "ms_all": ms,
+                    "peak_mem_gib": peak / 2**30, "player1_share": float(cur.float().mean()),
+                    "cpu_parity_positions": n, "cpu_mismatches": mismatches,
+                    "seconds": time.perf_counter() - t0}))
+
+
+def phase_greedy_dqn(smi: str, gen: torch.Generator) -> None:
+    """8. the DQN iteration against the greedy opponent, split by phase."""
+    from gobblet_rl_torch.train import dqn, replay
+
+    t0 = time.perf_counter()
+    config = dqn.DQNConfig(**{**DQN, "opponent": "greedy", "learner_player": "both"})
+    torch.cuda.reset_peak_memory_stats()
+    ts = dqn.init_train_state(config, dqn.make_net(config, gen.device), gen)
+    it, opp_fn = dqn.make_train_iteration(config)
+    env_state = dqn.init_env_state(config, opp_fn, ts.opponent_net, gen)
+    buffer = replay.make_buffer(config.buffer_size, gen.device)
+    env_state, buffer, loss = it(ts, env_state, buffer, gen)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(2):
+        marks = []
+        mark = cuda_mark(marks)
+        w0 = time.perf_counter()
+        mark("start")
+        env_state, buffer, loss = it(ts, env_state, buffer, gen, mark=mark)
+        loss = float(loss)  # synchronises
+        wall_ms = 1e3 * (time.perf_counter() - w0)
+        check(math.isfinite(loss), "greedy dqn: loss finite")
+        phases = {name: prev.elapsed_time(event)
+                  for (_, prev), (name, event) in zip(marks, marks[1:])}
+        runs.append({"iteration_ms": wall_ms, **{f"{k}_ms": v for k, v in phases.items()},
+                     "loss": loss})
+    seats = dqn.seat_array("both", config.num_envs, env_state.current.device)
+    check(bool((env_state.current == seats).all()), "greedy dqn: every env at its learner's turn")
+    check(ts.grad_steps == 3 * config.update_per_collect, "greedy dqn: grad_steps")
+    L = config.segment_len + config.n_step - 1
+    log(json.dumps({"metric": "dqn_greedy_iteration", "device": smi,
+                    "num_envs": config.num_envs, "learner_player": "both", "greedy_depth": 2,
+                    "env_steps_per_sec": [config.num_envs * L / (r["iteration_ms"] / 1e3)
+                                          for r in runs],
+                    "runs": runs, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "seconds": time.perf_counter() - t0}))
+
+
+def clone_tree(tree):
+    """A deep copy of a payload: tensors cloned, containers rebuilt."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree
+
+
+def tree_equal(a, b, path="payload") -> int:
+    """Checks ``a`` and ``b`` equal leaf for leaf (tensors by ``torch.equal``
+    on the CPU); returns the number of tensors compared."""
+    if isinstance(a, torch.Tensor):
+        check(isinstance(b, torch.Tensor) and a.dtype == b.dtype
+              and torch.equal(a.cpu(), b.cpu()), f"cli resume: {path} restored exactly")
+        return 1
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and a.keys() == b.keys(), f"cli resume: {path} keys")
+        return sum(tree_equal(a[k], b[k], f"{path}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"cli resume: {path} length")
+        return sum(tree_equal(x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b)))
+    check(a == b, f"cli resume: {path} == {b!r}")
+    return 0
+
+
+def phase_cli_resume(smi: str) -> None:
+    """9. the DQN command line, relaunched from its full resume point."""
+    from gobblet_rl_torch.examples import example_dqn
+    from gobblet_rl_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        resume = os.path.join(tmp, "resume")
+        saved, restored = {}, {}
+        real_save, real_restore = ckpt.save_payload, ckpt.restore_payload
+
+        def recording_save(directory, payload, step, meta=None):
+            if directory == resume:
+                saved[step] = (clone_tree(payload), meta)
+            real_save(directory, payload, step, meta)
+
+        def recording_restore(directory, step=None):
+            payload, step = real_restore(directory, step)
+            if payload is not None:
+                restored[step] = clone_tree(payload)
+            return payload, step
+
+        def run(epochs: int):
+            args = example_dqn.get_parser().parse_args(
+                CLI_ARGS + ["--epoch", str(epochs), "--full-resume-dir", resume,
+                            "--logdir", os.path.join(tmp, "log")])
+            w0 = time.perf_counter()
+            ts, history = example_dqn.main(args)
+            return ts, history, time.perf_counter() - w0
+
+        ckpt.save_payload, ckpt.restore_payload = recording_save, recording_restore
+        try:
+            ts1, hist1, s1 = run(1)
+            ts2, hist2, s2 = run(2)
+        finally:
+            ckpt.save_payload, ckpt.restore_payload = real_save, real_restore
+        check([h["epoch"] for h in hist1] == [0], "cli: the first launch runs epoch 0")
+        check([h["epoch"] for h in hist2] == [1], "cli: the relaunch runs exactly epoch 1")
+        check(ts2.grad_steps == 2 * ts1.grad_steps, "cli: grad_steps doubles")
+        check(list(restored) == [0] and 0 in saved, "cli: step 0 saved and restored")
+        tensors = tree_equal(restored[0], saved[0][0])
+        check(ckpt.load_meta(resume, 0) == json.loads(json.dumps(saved[0][1])),
+              "cli: meta sidecar restored")
+        history = os.path.join(tmp, "log", "gobblet_rl_torch", "dqn", "history.jsonl")
+        with open(history) as f:
+            check(len(f.read().splitlines()) == 2, "cli: history.jsonl has both epochs")
+    log(json.dumps({"metric": "dqn_cli_resume", "device": smi, "args": CLI_ARGS,
+                    "first_launch_s": s1, "relaunch_s": s2, "grad_steps": ts2.grad_steps,
+                    "restored_tensors_equal": tensors, "records": hist1 + hist2,
+                    "seconds": time.perf_counter() - t0}))
+
+
+def phase_vector(smi: str, gen: torch.Generator) -> None:
+    """10. the vector env's rollout at full width."""
+    from gobblet_rl_torch.env import vector
+    from gobblet_rl_torch.ops import batched_core as bc
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    state, ts = vector.vector_reset(ROLLOUT_B, dev)
+    state, ts, _ = vector.rollout(state, gen, ts, vector.random_policy, 4)  # warm-up
+    (state, ts, stats), ms = timed(
+        lambda: vector.rollout(state, gen, ts, vector.random_policy, ROLLOUT_STEPS), 1)
+    eps, w1, w2 = (int(stats[k]) for k in ("episodes", "wins_p1", "wins_p2"))
+    check(eps == w1 + w2, "vector: episodes == wins_p1 + wins_p2")
+    check(ts.obs.dtype == torch.int8 and tuple(ts.obs.shape) == (ROLLOUT_B, 3, 3, 13),
+          "vector: observation int8[B, 3, 3, 13]")
+    check(ts.mask.dtype == torch.bool and tuple(ts.mask.shape) == (ROLLOUT_B, 54),
+          "vector: mask bool[B, 54]")
+    check(torch.equal(ts.mask, bc.legal_mask_planes(state.board, state.current).t()),
+          "vector: mask == legal_mask_planes of the state")
+    check(torch.equal(ts.obs, bc.to_reference_obs(bc.observe_planes_lm(state.board,
+                                                                         state.current))),
+          "vector: observation of the state")
+    log(json.dumps({"metric": "vector_rollout_env_steps_per_sec", "device": smi,
+                    "batch": ROLLOUT_B, "plies": ROLLOUT_STEPS,
+                    "value": ROLLOUT_B * ROLLOUT_STEPS / (ms[0] / 1e3), "ms": ms[0],
+                    "episodes": eps, "p1_share": w1 / eps,
+                    "seconds": time.perf_counter() - t0}))
+
+
+def phase_zoo(smi: str, gen: torch.Generator) -> None:
+    """11. the committed dqn_greedy agent on the card."""
+    from gobblet_rl_torch import zoo
+    from gobblet_rl_torch.eval import tournament
+    from gobblet_rl_torch.ops import batched_core as bc
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    net, _, entry = zoo.load("dqn_greedy", expect_family="dqn", device=dev)
+    cpu_net, _, _ = zoo.load("dqn_greedy", device="cpu")
+    state, _ = bc.rollout_random(bc.reset_planes(GREEDY_PARITY_B, dev), gen, 10)
+    obs = bc.features_lm(state.board, state.current).t()
+    with torch.no_grad():
+        q_card, q_cpu = net(obs).cpu(), cpu_net(obs.cpu())
+    tol = 2e-2 * float(q_cpu.abs().max())
+    q_err = float((q_card - q_cpu).abs().max())
+    check(q_err <= tol, f"zoo: Q on the card within {tol:.4g} of the CPU's")
+    w0 = time.perf_counter()
+    match = tournament.play_match(zoo.policy("dqn_greedy", device=dev),
+                                  tournament.greedy_policy(2),
+                                  num_games=ZOO_GAMES, seed=0, device=dev)
+    match_s = time.perf_counter() - w0
+    check(match["win_rate"] >= ZOO_MIN_WIN_RATE,
+          f"zoo: dqn_greedy vs greedy-2 win rate {match['win_rate']:.3f} >= {ZOO_MIN_WIN_RATE}")
+    log(json.dumps({"metric": "zoo_dqn_greedy_vs_greedy2", "device": smi, **match,
+                    "manifest_vs_greedy_2": entry["metrics"]["vs_greedy-2"],
+                    "q_positions": GREEDY_PARITY_B, "q_max_abs_err": q_err, "q_tolerance": tol,
+                    "match_s": match_s, "seconds": time.perf_counter() - t0}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card",
@@ -205,6 +452,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device -------------------------------------------------------------
+    run_t0 = time.perf_counter()
     smi = smi_query("name,power.limit")
     sm_mhz = float(smi_query("clocks.max.sm").split()[0])
     kind = torch.cuda.get_device_name(0)
@@ -364,6 +612,16 @@ def main() -> int:
     else:  # the source count, all of it at the issue rate
         ops_ms = issue_floor_ms(sum(OPS_PER_PLY.values()), 0, env_plies, sm_mhz)
     bytes_ms = 1e3 * nbytes / PEAK_HBM_BYTES
+    log(f"# phases 1-6: {time.perf_counter() - run_t0:.1f} s")
+
+    # 7-11. the modules of the DQN family beyond the main path --------------
+    phase_greedy(smi, gen)
+    phase_greedy_dqn(smi, gen)
+    phase_cli_resume(smi)
+    phase_vector(smi, gen)
+    phase_zoo(smi, gen)
+
+    log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "
         f"{ops_ms / statistics.median(kernel_ms):.1%} of the larger")
     log(smi)

@@ -16,8 +16,18 @@ Layout:
   ``kernels/csrc/rollout.cu``) and its plain version
 * ``models/mlp.py``        ``QNet`` + masked argmax; ``models/convert.py``
   loads flax parameters
-* ``train/replay.py``      the state-snapshot replay ring
-* ``train/dqn.py``         the fused DQN actor-learner
+* ``policies/greedy_jax.py``  the batched depth-1/2 greedy opponent
+* ``env/vector.py``        the batch-first vector env and its rollout
+* ``train/replay.py``      the state-snapshot replay ring and the n-step
+  ``Segment`` folds
+* ``train/dqn.py``         the fused DQN actor-learner (random, greedy, self
+  and mixed opponents; checkpoints and exact resume)
+* ``train/checkpoint.py``  ``torch.save`` checkpoints, full resume points
+* ``train/logging.py``     JSONL (and TensorBoard) metrics
+* ``eval/tournament.py``   random, greedy and DQN policies, ``play_match``
+* ``zoo/``                 the committed ``dqn`` agents, read from the JAX
+  package's blobs by a msgpack reader of its own
+* ``examples/example_dqn.py``  the DQN command line (training mode)
 """
 
 __version__ = "0.1.0"

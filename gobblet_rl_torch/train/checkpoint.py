@@ -1,0 +1,169 @@
+"""Checkpoints of the DQN training state, and exact resume points.
+
+Port of ``gobblet_rl_tpu/train/checkpoint.py`` with its own on-disk format:
+each step is one ``ckpt-<step>.pt`` file written by ``torch.save`` from
+plain dicts of tensors, ints, floats, tuples and ``None`` (no pickled
+classes), and read back with ``torch.load(..., weights_only=True)``.  Every
+file is written to a temporary name and then ``os.replace``-d into place, so
+a crash leaves either the old file or the new one.  A directory keeps the
+newest 3 steps.
+
+A full resume point (:func:`save_full`) holds everything a run needs to
+continue bit for bit: the learner, target and opponent nets, the Adam state
+and ``grad_steps``, the env batch, the replay ring with its cursor, and the
+torch generator's state.  Host-side state that is not a tensor (the numpy
+generator of the mixed opponent) goes into the JSON sidecar
+``meta-<step>.json``, written before the payload.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+
+import torch
+
+MAX_TO_KEEP = 3
+_CKPT = re.compile(r"^ckpt-(\d+)\.pt$")
+
+
+def _path(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), f"ckpt-{step}.pt")
+
+
+def _meta_path(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), f"meta-{step}.json")
+
+
+def _steps(directory: str) -> list[int]:
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for f in os.listdir(directory) if (m := _CKPT.match(f)))
+
+
+def _atomic_save(obj, path: str) -> None:
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def train_state_dict(train_state) -> dict:
+    """Plain dict of a :class:`~gobblet_rl_torch.train.dqn.TrainState`."""
+    return {
+        "net": train_state.net.state_dict(),
+        "target_net": train_state.target_net.state_dict(),
+        "opponent_net": train_state.opponent_net.state_dict(),
+        "optimizer": train_state.optimizer.state_dict(),
+        "grad_steps": int(train_state.grad_steps),
+    }
+
+
+def load_train_state(train_state, state: dict):
+    """Load :func:`train_state_dict`'s dict into ``train_state`` in place."""
+    train_state.net.load_state_dict(state["net"])
+    train_state.target_net.load_state_dict(state["target_net"])
+    train_state.opponent_net.load_state_dict(state["opponent_net"])
+    train_state.optimizer.load_state_dict(state["optimizer"])
+    train_state.grad_steps = int(state["grad_steps"])
+    return train_state
+
+
+def save_payload(directory: str, payload: dict, step: int, meta: dict | None = None) -> None:
+    """Write ``payload`` (a plain dict) as step ``step``, then drop all but
+    the newest :data:`MAX_TO_KEEP` steps.
+
+    ``meta`` is written first, atomically: a crash between the two leaves
+    a sidecar for a step :func:`latest_step` never reports, which is
+    harmless; the reverse order could leave a restorable step without its
+    host-side state."""
+    os.makedirs(directory, exist_ok=True)
+    if meta is not None:
+        path = _meta_path(directory, step)
+        with open(path + ".tmp", "w") as f:
+            json.dump(meta, f)
+        os.replace(path + ".tmp", path)
+    _atomic_save(payload, _path(directory, step))
+    for old in _steps(directory)[:-MAX_TO_KEEP]:
+        os.remove(_path(directory, old))
+        if os.path.exists(_meta_path(directory, old)):
+            os.remove(_meta_path(directory, old))
+
+
+def latest_step(directory: str) -> int | None:
+    """Newest saved step in ``directory``, or None."""
+    steps = _steps(directory)
+    return steps[-1] if steps else None
+
+
+def restore_payload(directory: str, step: int | None = None):
+    """``(payload, step)`` of the newest (or the given) step, tensors on
+    the CPU; ``(None, None)`` when nothing is saved."""
+    if step is None:
+        step = latest_step(directory)
+    if step is None:
+        return None, None
+    return torch.load(_path(directory, step), map_location="cpu", weights_only=True), step
+
+
+def load_meta(directory: str, step: int) -> dict | None:
+    path = _meta_path(directory, step)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def save(directory: str, train_state, step: int) -> None:
+    """Nets, optimizer and ``grad_steps`` as step ``step``."""
+    save_payload(directory, train_state_dict(train_state), step)
+
+
+def restore(directory: str, train_state):
+    """Load the newest step into ``train_state`` in place; returns
+    ``(train_state, step)``, or ``(None, None)`` when nothing is saved."""
+    state, step = restore_payload(directory)
+    if state is None:
+        return None, None
+    return load_train_state(train_state, state), step
+
+
+def save_full(directory: str, train_state, env_state, buffer, generator: torch.Generator,
+              step: int, meta: dict | None = None) -> None:
+    """Full actor-learner resume point: the train state, the env batch
+    (a ``PlanesState``), the replay ring (a ``ReplayBuffer``) and the
+    generator's state."""
+    save_payload(directory, {
+        "train_state": train_state_dict(train_state),
+        "env_state": env_state._asdict(),
+        "buffer": buffer._asdict(),
+        "generator": generator.get_state(),
+    }, step, meta)
+
+
+def restore_full(directory: str, train_state, generator: torch.Generator):
+    """Restore the newest full resume point: ``train_state`` and
+    ``generator`` in place; returns ``(payload, step)`` with the env batch
+    and the ring moved to the generator's device, or ``(None, None)``."""
+    payload, step = restore_payload(directory)
+    if payload is None:
+        return None, None
+    load_train_state(train_state, payload["train_state"])
+    generator.set_state(payload["generator"])
+    dev = generator.device
+    for part in ("env_state", "buffer"):
+        payload[part] = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                         for k, v in payload[part].items()}
+    return payload, step
+
+
+def save_params(path: str, net: torch.nn.Module) -> None:
+    """Standalone dump of one net's parameters."""
+    _atomic_save(net.state_dict(), os.path.abspath(path))
+
+
+def load_params(path: str, net: torch.nn.Module) -> torch.nn.Module:
+    """Load :func:`save_params`'s file into ``net`` in place."""
+    net.load_state_dict(torch.load(os.path.abspath(path), map_location="cpu",
+                                   weights_only=True))
+    return net

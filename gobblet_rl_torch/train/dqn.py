@@ -7,9 +7,15 @@ into the replay ring -> one uniform sample for all ``update_per_collect``
 minibatches -> that many double-DQN updates (MSE TD loss, Adam, target
 sync every ``target_update_freq`` gradient steps).
 
+The opponent is "random", "greedy" (the batched depth-1/2 lookahead of
+``policies/greedy_jax.py``), "self" (a frozen copy of the learner) or
+"mixed" (one of the three drawn per iteration).
+
 The networks are :class:`QNet` modules held in a mutable
-:class:`TrainState`; updates change them in place.  All randomness comes
-from one explicit ``torch.Generator`` on the training device.
+:class:`TrainState`; updates change them in place.  All device randomness
+comes from one explicit ``torch.Generator`` on the training device; the
+mixed opponent's draws come from a numpy generator seeded with
+``config.seed``, the same call as the JAX trainer's.
 """
 
 from __future__ import annotations
@@ -17,12 +23,17 @@ from __future__ import annotations
 import copy
 import dataclasses
 
+import numpy as np
 import torch
 
 from gobblet_rl_torch.device import resolve_device
 from gobblet_rl_torch.models.mlp import QNet, masked_argmax, masked_q
 from gobblet_rl_torch.ops import batched_core as bc
+from gobblet_rl_torch.policies import greedy_jax
+from gobblet_rl_torch.train import checkpoint as ckpt
 from gobblet_rl_torch.train import replay
+
+MIXED_KINDS = ("random", "greedy", "self")  # the order of mixed_weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +99,10 @@ def make_opponent_fn(config: DQNConfig):
             return bc.sample_random_lm(generator, bc.legal_mask_planes(board, current))
 
     elif config.opponent == "greedy":
-        raise NotImplementedError("policies/greedy_jax.py not ported yet")
+
+        def fn(generator, board, current, opp_net):
+            return greedy_jax.greedy_actions(generator, board, current, config.greedy_depth)
+
     elif config.opponent == "self":
 
         @torch.no_grad()
@@ -190,9 +204,11 @@ def update(config: DQNConfig, ts: TrainState, batch) -> torch.Tensor:
 
 def make_train_iteration(config: DQNConfig):
     """Returns ``(train_iteration, opponent_fn)``;
-    ``train_iteration(ts, env_state, buffer, generator)`` returns
+    ``train_iteration(ts, env_state, buffer, generator, mark=None)`` returns
     ``(env_state, buffer, mean loss)`` and updates ``ts`` and the ring in
-    place."""
+    place.  ``mark``, if given, is called with "collect", "insert",
+    "sample" and "updates" as each phase has been issued (a timer's
+    hook)."""
     opponent_fn = make_opponent_fn(config)
     learner_step = make_learner_step(config, opponent_fn)
     L = config.segment_len + config.n_step - 1  # tail for a full n-step horizon
@@ -218,16 +234,21 @@ def make_train_iteration(config: DQNConfig):
         boards[L], currents[L] = env_state.board, env_state.current
         return env_state, replay.StateSegment(boards, currents, actions, rewards, dones)
 
-    def train_iteration(ts: TrainState, env_state, buffer, generator):
+    def train_iteration(ts: TrainState, env_state, buffer, generator, mark=None):
+        mark = mark or (lambda phase: None)
         env_state, sseg = collect(ts, env_state, generator)
+        mark("collect")
         buffer = replay.insert_segment(buffer, sseg, config.n_step, config.gamma,
                                        config.segment_len)
+        mark("insert")
         # one gather for ALL minibatches: the ring is fixed during the
         # update phase, so this is distribution-identical to per-update draws
         U, bs = config.update_per_collect, config.batch_size
         flat = replay.sample(buffer, generator, bs * U)
+        mark("sample")
         losses = [update(config, ts, tuple(x[u * bs:(u + 1) * bs] for x in flat))
                   for u in range(U)]
+        mark("updates")
         return env_state, buffer, torch.stack(losses).mean()
 
     return train_iteration, opponent_fn
@@ -292,29 +313,64 @@ def train(config: DQNConfig = DQNConfig(), logger=None, generations: int = 1,
     """Train a masked DQN; returns (final TrainState, history list).
 
     ``generations > 1`` runs the self-play loop: the opponent net takes a
-    snapshot of the learner after each generation."""
-    if checkpoint_dir is not None or full_resume_dir is not None:
-        raise NotImplementedError("checkpoints are not ported yet")
-    if config.opponent == "mixed":
-        raise NotImplementedError("opponent='mixed' needs the greedy opponent, not ported yet")
+    snapshot of the learner after each generation.
+
+    ``checkpoint_dir`` saves the train state after every epoch.
+    ``full_resume_dir`` saves a complete resume point after every epoch
+    (:func:`~gobblet_rl_torch.train.checkpoint.save_full`, with the epoch
+    counter as its step and the mixed opponent's numpy generator in its
+    meta sidecar) and, at start, restores the newest one: a run preempted
+    and relaunched with the same arguments continues the schedule where it
+    stopped and ends bit-identical to an uninterrupted run."""
     if config.defense_bc_weight > 0:
-        raise NotImplementedError("the defense bank (train/defense.py) is not ported yet")
+        raise NotImplementedError(
+            "defense_bc_weight > 0 needs the defense bank (train/defense.py, "
+            "ROADMAP A.13), which is not ported yet")
 
     dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(config.seed)
     ts = init_train_state(config, make_net(config, dev), generator)
-    train_iteration, opponent_fn = make_train_iteration(config)
+    rng_mix = np.random.default_rng(config.seed)
+    if config.opponent == "mixed":
+        variants = {kind: make_train_iteration(dataclasses.replace(config, opponent=kind))
+                    for kind in MIXED_KINDS}
+
+        def pick_iteration():
+            return variants[rng_mix.choice(MIXED_KINDS, p=list(config.mixed_weights))][0]
+
+        # evaluation and the env bootstrap use the greedy opponent
+        train_iteration, opponent_fn = variants["greedy"]
+    else:
+        train_iteration, opponent_fn = make_train_iteration(config)
+
+        def pick_iteration():
+            return train_iteration
+
     evaluate = make_eval_fn(config, opponent_fn)
     env_state = init_env_state(config, opponent_fn, ts.opponent_net, generator)
     buffer = replay.make_buffer(config.buffer_size, dev)
 
+    start = 0  # flat epoch counter: e = generation * config.epoch + epoch
+    if full_resume_dir is not None:
+        payload, step = ckpt.restore_full(full_resume_dir, ts, generator)
+        if payload is not None:
+            meta = ckpt.load_meta(full_resume_dir, step)
+            if meta is None:
+                raise RuntimeError(
+                    f"checkpoint step {step} in {full_resume_dir!r} has no "
+                    f"meta-{step}.json sidecar; cannot resume bit-exactly")
+            env_state = bc.PlanesState(**payload["env_state"])
+            buffer = replay.ReplayBuffer(**payload["buffer"])
+            rng_mix.bit_generator.state = meta["rng_mix_state"]
+            start = step + 1
+
     history = []
-    for e in range(generations * config.epoch):
+    for e in range(start, generations * config.epoch):
         gen, epoch = divmod(e, config.epoch)
         losses = []
         for _ in range(config.step_per_epoch):
-            env_state, buffer, loss = train_iteration(ts, env_state, buffer, generator)
+            env_state, buffer, loss = pick_iteration()(ts, env_state, buffer, generator)
             losses.append(loss)  # device scalar; synced once per epoch
         losses = torch.stack(losses).tolist()
         w, l, other = evaluate(ts.net, ts.opponent_net, generator)
@@ -331,6 +387,13 @@ def train(config: DQNConfig = DQNConfig(), logger=None, generations: int = 1,
         history.append(record)
         if logger is not None:
             logger.log(record)
-        if epoch == config.epoch - 1:  # self-play generation hand-off
+        # self-play generation hand-off, BEFORE the resume point is written:
+        # a relaunch after a generation's last epoch sees the new opponent
+        if epoch == config.epoch - 1:
             ts.opponent_net.load_state_dict(ts.net.state_dict())
+        if checkpoint_dir is not None:
+            ckpt.save(checkpoint_dir, ts, step=ts.grad_steps)
+        if full_resume_dir is not None:
+            ckpt.save_full(full_resume_dir, ts, env_state, buffer, generator, step=e,
+                           meta={"rng_mix_state": rng_mix.bit_generator.state})
     return ts, history

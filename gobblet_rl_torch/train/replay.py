@@ -1,10 +1,12 @@
 """Device-resident uniform replay ring of n-step transitions.
 
-Port of the state ring of ``gobblet_rl_tpu/train/replay.py``.  A row is the
-raw game state, not derived features: (board int8[27], current int8,
-action int32, reward_n float32, done_n bool, next board int8[27], next
-current int8), 65 B.  Observations and legal masks are recomputed from the
-snapshots at sample time, bit-identical to what the collector saw.
+Port of ``gobblet_rl_tpu/train/replay.py``: the state ring the trainer
+uses, and the feature-space ``Segment`` folds that specify what its n-step
+rows mean.  A ring row is the raw game state, not derived features:
+(board int8[27], current int8, action int32, reward_n float32, done_n
+bool, next board int8[27], next current int8), 65 B.  Observations and
+legal masks are recomputed from the snapshots at sample time,
+bit-identical to what the collector saw.
 
 n-step returns are folded at insert time from the collected segment
 (terminal-only rewards); the bootstrap ``gamma^n Q_target(s_{t+n})`` is
@@ -50,6 +52,71 @@ def make_buffer(capacity: int, device=None) -> ReplayBuffer:
         current_n=torch.zeros(capacity, dtype=torch.int8, device=dev),
         cursor=0,
         filled=0,
+    )
+
+
+class Segment(NamedTuple):
+    """A collected segment of derived features, time-major and batch-first.
+    The reference semantics of the n-step fold; the trainer itself stores
+    :class:`StateSegment` rows."""
+
+    obs: torch.Tensor        # int8[L, B, 117]
+    action: torch.Tensor     # int32[L, B]
+    reward: torch.Tensor     # float32[L, B] — learner-perspective reward
+    done: torch.Tensor       # bool[L, B]
+    obs_next: torch.Tensor   # int8[L, B, 117]
+    mask_next: torch.Tensor  # bool[L, B, 54]
+
+
+def nstep_fold(seg: Segment, n_step: int, gamma: float) -> Segment:
+    """Fold a segment into n-step transitions; the tail positions truncate
+    to the horizon the segment holds, and the bootstrap observation stays
+    at the step where the episode ended."""
+    reward_n, done_n = seg.reward, seg.done
+    obs_n, mask_n = seg.obs_next, seg.mask_next
+    discount = gamma
+    for k in range(1, n_step):
+        # shift by k, padding the tail with zero rewards and finished steps
+        r_k = torch.cat([seg.reward[k:], torch.zeros_like(seg.reward[:k])])
+        d_k = torch.cat([seg.done[k:], torch.ones_like(seg.done[:k])])
+        o_k = torch.cat([seg.obs_next[k:], seg.obs_next[-1:].expand(k, -1, -1)])
+        m_k = torch.cat([seg.mask_next[k:], seg.mask_next[-1:].expand(k, -1, -1)])
+        live = ~done_n  # the episode still runs after the earlier steps
+        reward_n = reward_n + discount * live * r_k
+        obs_n = torch.where(live[..., None], o_k, obs_n)
+        mask_n = torch.where(live[..., None], m_k, mask_n)
+        done_n = done_n | d_k
+        discount *= gamma
+    return Segment(seg.obs, seg.action, reward_n, done_n, obs_n, mask_n)
+
+
+class CompactSegment(NamedTuple):
+    """Feature-space segment whose ``obs``/``mask`` carry L+1 entries, so
+    ``obs_next[t]`` is ``obs[t+1]``; the fold-equivalence spec."""
+
+    obs: torch.Tensor     # int8[L+1, B, 117]
+    mask: torch.Tensor    # bool[L+1, B, 54]
+    action: torch.Tensor  # int32[L, B]
+    reward: torch.Tensor  # float32[L, B]
+    done: torch.Tensor    # bool[L, B]
+
+
+def nstep_fold_compact(cseg: CompactSegment, n_step: int, gamma: float,
+                       segment_len: int) -> Segment:
+    """Fold a compact segment of length L = segment_len + n_step - 1 into
+    ``segment_len`` n-step transitions.  ``reward``/``done`` equal
+    :func:`nstep_fold`'s; ``obs_next``/``mask_next`` differ only on rows
+    whose ``done`` is set (the post-reset state), whose bootstrap the TD
+    target multiplies by zero."""
+    S = segment_len
+    reward_n, done_n = _fold_scalars(cseg.reward, cseg.done, n_step, gamma, S)
+    return Segment(
+        obs=cseg.obs[:S],
+        action=cseg.action[:S],
+        reward=reward_n,
+        done=done_n,
+        obs_next=cseg.obs[n_step:S + n_step],
+        mask_next=cseg.mask[n_step:S + n_step],
     )
 
 

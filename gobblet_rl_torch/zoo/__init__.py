@@ -1,0 +1,95 @@
+"""Trained-agent zoo: the committed agents, loaded into torch modules.
+
+Port of ``gobblet_rl_tpu/zoo/__init__.py`` for the ``dqn`` family.  The
+agents are the flax-serialized parameter blobs and the ``manifest.json``
+committed in ``gobblet_rl_tpu/zoo/``; this module reads them by path (or
+from ``$GOBBLET_ZOO_DIR``), decodes them with its own msgpack reader
+(:mod:`gobblet_rl_torch.zoo.flax_msgpack`) and carries the weights across
+with :func:`gobblet_rl_torch.models.convert.qnet_params_from_flax`:
+
+    from gobblet_rl_torch import zoo
+    net, params, meta = zoo.load("dqn_greedy")   # QNet on the card
+    policy = zoo.policy("dqn_greedy")            # eval/tournament policy
+
+The ``alphazero`` and ``ppo`` families wait for their models' port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+from typing import Any, Dict, Tuple
+
+from gobblet_rl_torch.eval import tournament
+from gobblet_rl_torch.models.convert import qnet_params_from_flax
+from gobblet_rl_torch.models.mlp import QNet
+from gobblet_rl_torch.zoo import flax_msgpack
+
+_NOT_PORTED = {
+    "alphazero": "the AlphaZero models and search (ROADMAP A.11)",
+    "ppo": "the PPO actor-critic (ROADMAP A.12)",
+}
+
+
+def _zoo_dir() -> str:
+    """The committed zoo of the JAX package, or ``$GOBBLET_ZOO_DIR``."""
+    default = Path(__file__).resolve().parents[2] / "gobblet_rl_tpu" / "zoo"
+    return os.environ.get("GOBBLET_ZOO_DIR", str(default))
+
+
+def _manifest() -> Dict[str, Any]:
+    path = os.path.join(_zoo_dir(), "manifest.json")
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def names() -> list:
+    """Available zoo entries (sorted)."""
+    return sorted(_manifest())
+
+
+def meta(name: str) -> Dict[str, Any]:
+    m = _manifest()
+    if name not in m:
+        raise KeyError(f"unknown zoo entry {name!r}; available: {sorted(m) or 'none'}")
+    return m[name]
+
+
+def load(name: str, expect_family: str | None = None,
+         device=None) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
+    """``(net, params, meta)`` for a zoo entry: the torch module on
+    ``device`` (``None``: the CUDA card, or raise) with the weights loaded,
+    the flax parameter tree as numpy arrays, and the manifest row.
+
+    ``expect_family`` guards against loading another family's agent."""
+    entry = meta(name)
+    family = entry["family"]
+    if expect_family is not None and family != expect_family:
+        raise ValueError(
+            f"zoo entry {name!r} is family {family!r}, but this loader expects "
+            f"{expect_family!r}; pick one of "
+            f"{[n for n in names() if meta(n)['family'] == expect_family] or 'none'}")
+    if family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"zoo entry {name!r} is family {family!r}, which needs "
+            f"{_NOT_PORTED[family]}, not ported yet; the dqn family loads")
+    if family != "dqn":
+        raise ValueError(f"unknown zoo family {family!r}")
+
+    with open(os.path.join(_zoo_dir(), entry["file"]), "rb") as f:
+        params = flax_msgpack.msgpack_restore(f.read())
+    net_cfg = entry["net"]
+    net = QNet(hidden_sizes=tuple(net_cfg["hidden_sizes"]), dueling=net_cfg["dueling"],
+               device=device)
+    net.load_state_dict(qnet_params_from_flax(params, dueling=net_cfg["dueling"]))
+    return net, params, entry
+
+
+def policy(name: str, device=None, **overrides):
+    """Tournament policy ``(generator, board, current) -> actions`` of a
+    zoo entry; ``overrides`` tune its evaluation (``eps`` for dqn)."""
+    net, _, _ = load(name, device=device)
+    return tournament.dqn_policy(net, **overrides)

@@ -10,6 +10,8 @@ products in different orders); bfloat16 Q-values within 2e-2 of max |Q|
 places); parameters after one Adam step within atol 1e-5.
 """
 
+from dataclasses import replace as dataclasses_replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 from gobblet_rl_torch.models import mlp as tmlp
 from gobblet_rl_torch.models.convert import qnet_params_from_flax
 from gobblet_rl_torch.ops import batched_core as tbc
+from gobblet_rl_torch.policies import greedy_jax as greedy_jax_torch
 from gobblet_rl_torch.train import dqn as tdqn
 from gobblet_rl_torch.train import replay as trp
 from gobblet_rl_tpu.models.mlp import QNet, masked_q
@@ -29,6 +32,17 @@ from gobblet_rl_tpu.train import replay as jrp
 
 CPU = torch.device("cpu")
 HIDDEN = (32, 32)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread per test: the suite runs in several worker
+    processes on a few cores, where torch's thread pools would oversubscribe
+    them and small ops slow down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def flax_params(hidden, dueling, seed=0, dtype=jnp.float32):
@@ -391,10 +405,174 @@ def test_train_runs_and_evaluates():
 
 @pytest.mark.parametrize("kw", [dict(opponent="greedy"), dict(opponent="mixed"),
                                 dict(defense_bc_weight=1.0), dict(checkpoint="x")])
-def test_unported_options_raise(kw):
-    if "checkpoint" in kw:
-        with pytest.raises(NotImplementedError):
-            tdqn.train(small_config(), checkpoint_dir="unused", device=CPU)
-        return
-    with pytest.raises(NotImplementedError):
-        tdqn.train(small_config(**kw), device=CPU)
+def test_unported_options_raise(kw, tmp_path):
+    """Only the defense term is left unported: ``defense_bc_weight > 0``
+    raises, naming A.13, with every opponent and with checkpoints on."""
+    kw = dict(kw)
+    dirs = {}
+    if kw.pop("checkpoint", None):
+        dirs = dict(checkpoint_dir=str(tmp_path / "c"), full_resume_dir=str(tmp_path / "f"))
+    kw.setdefault("defense_bc_weight", 0.5)
+    with pytest.raises(NotImplementedError, match="A.13"):
+        tdqn.train(small_config(**kw), device=CPU, **dirs)
+    assert not (tmp_path / "c").exists() and not (tmp_path / "f").exists()
+
+
+# ---------------------------------------------------------------------------
+# the feature-space Segment folds (the n-step spec)
+# ---------------------------------------------------------------------------
+def test_nstep_fold_terminal_rewards():
+    """Hand-built segment: terminal-only rewards fold as n-step returns."""
+    L, B = 6, 1
+    obs = torch.zeros((L, B, 117), dtype=torch.int8)
+    obs_n = torch.arange(L, dtype=torch.int8)[:, None, None] * torch.ones((L, B, 117),
+                                                                          dtype=torch.int8)
+    mask = torch.ones((L, B, 54), dtype=torch.bool)
+    action = torch.zeros((L, B), dtype=torch.int32)
+    reward = torch.tensor([0, 0, 1, 0, 0, -1], dtype=torch.float32)[:, None]
+    done = torch.tensor([0, 0, 1, 0, 0, 1], dtype=torch.bool)[:, None]
+    out = trp.nstep_fold(trp.Segment(obs, action, reward, done, obs_n, mask), 3, 0.9)
+    np.testing.assert_allclose(out.reward[:, 0].numpy(), [0.81, 0.9, 1.0, -0.81, -0.9, -1.0],
+                               atol=1e-6)
+    assert out.done[:, 0].tolist() == [True] * 6
+    assert out.obs_next[:, 0, 0].tolist() == [2, 2, 2, 5, 5, 5]
+
+
+def random_feature_segment(S, n, B, seed):
+    rng = np.random.default_rng(seed)
+    L = S + n - 1
+    return (rng.integers(0, 3, (L + 1, B, 117)).astype(np.int8),
+            rng.random((L + 1, B, 54)) < 0.5,
+            rng.integers(0, 54, (L, B)).astype(np.int32),
+            rng.choice([-1.0, 0.0, 1.0], (L, B)).astype(np.float32),
+            rng.random((L, B)) < 0.2)
+
+
+def assert_segments_equal(tseg, jseg):
+    for field, t, j in zip(jrp.Segment._fields, tseg, jseg):
+        j = np.asarray(j)
+        assert t.numpy().dtype == j.dtype, field
+        if field == "reward":
+            np.testing.assert_allclose(t.numpy(), j, atol=1e-6, rtol=0, err_msg=field)
+        else:
+            np.testing.assert_array_equal(t.numpy(), j, err_msg=field)
+
+
+@pytest.mark.parametrize("fold", ["nstep_fold", "nstep_fold_compact"])
+def test_segment_folds_match_jax(fold):
+    S, n, B = 6, 3, 16
+    obs, mask, action, reward, done = random_feature_segment(S, n, B, 0)
+    L = S + n - 1
+    if fold == "nstep_fold":
+        arrays = (obs[:L], action, reward, done, obs[1:], mask[1:])
+        j = jrp.nstep_fold(jrp.Segment(*map(jnp.asarray, arrays)), n, 0.9)
+        t = trp.nstep_fold(trp.Segment(*map(torch.from_numpy, arrays)), n, 0.9)
+    else:
+        arrays = (obs, mask, action, reward, done)
+        j = jrp.nstep_fold_compact(jrp.CompactSegment(*map(jnp.asarray, arrays)), n, 0.9, S)
+        t = trp.nstep_fold_compact(trp.CompactSegment(*map(torch.from_numpy, arrays)), n,
+                                   0.9, S)
+    assert_segments_equal(t, j)
+
+
+def test_nstep_fold_compact_equivalent():
+    """The compact fold agrees with the full fold wherever the TD target
+    looks: reward and done everywhere, the bootstrap on live rows."""
+    S, n, B = 6, 3, 16
+    obs, mask, action, reward, done = random_feature_segment(S, n, B, 1)
+    L = S + n - 1
+    old = trp.nstep_fold(trp.Segment(*map(torch.from_numpy, (
+        obs[:L], action, reward, done, obs[1:], mask[1:]))), n, 0.9)
+    old = trp.Segment(*(x[:S] for x in old))
+    new = trp.nstep_fold_compact(trp.CompactSegment(*map(torch.from_numpy, (
+        obs, mask, action, reward, done))), n, 0.9, S)
+    np.testing.assert_allclose(new.reward.numpy(), old.reward.numpy(), atol=1e-6)
+    assert torch.equal(new.done, old.done) and torch.equal(new.obs, old.obs)
+    live = ~new.done
+    assert torch.equal(new.obs_next[live], old.obs_next[live])
+    assert torch.equal(new.mask_next[live], old.mask_next[live])
+
+
+# ---------------------------------------------------------------------------
+# greedy and mixed opponents
+# ---------------------------------------------------------------------------
+def test_learner_steps_with_greedy_opponent_match():
+    """Learner steps against the greedy opponent, learner_player="both":
+    the torch opponent gets the Gumbel fields the JAX one draws from its
+    keys, so the env batches stay bit-identical, every env at its learner
+    seat's turn."""
+    B, steps = 64, 12
+    config = jdqn.DQNConfig(opponent="greedy", greedy_depth=2, learner_player="both",
+                            num_envs=B)
+    tconfig = tdqn.DQNConfig(opponent="greedy", greedy_depth=2, learner_player="both",
+                             num_envs=B)
+    j_step = jax.jit(jdqn.make_learner_step(config, jdqn.make_opponent_fn(config, None)))
+    fields = []
+
+    def t_opp(generator, board, current, opp_net):   # the greedy, fed JAX's noise
+        return greedy_jax_torch.greedy_actions(None, board, current, 2,
+                                               gumbel=fields.pop(0))
+
+    t_step = tdqn.make_learner_step(tconfig, t_opp)
+    key = jax.random.PRNGKey(3)
+    js = jdqn.init_env_state(config, jdqn.make_opponent_fn(config, None), None, key)
+    fields.append(torch.from_numpy(np.array(jax.random.gumbel(key, (54, B)))))
+    ts = tdqn.init_env_state(tconfig, t_opp, None, torch.Generator())
+    seats = tdqn.seat_array("both", B, CPU)
+    rng = np.random.default_rng(0)
+    finished = 0
+    for t in range(steps):
+        mask = tbc.legal_mask_planes(ts.board, ts.current).numpy().T
+        actions = np.array([rng.choice(np.nonzero(m)[0]) for m in mask], np.int32)
+        key, sub = jax.random.split(key)
+        k1, k2 = jax.random.split(sub)
+        fields[:] = [torch.from_numpy(np.array(jax.random.gumbel(k, (54, B)))) for k in (k1, k2)]
+        js, jr, jd = j_step(js, jnp.asarray(actions), sub, None)
+        ts, tr, td = t_step(ts, torch.from_numpy(actions), None, None)
+        for field, j, x in zip(jbc.PlanesState._fields, js, ts):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(j), err_msg=f"{field} at {t}")
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        assert torch.equal(ts.current, seats)
+        finished += int(td.sum())
+    assert finished > 0
+
+
+def test_mixed_kinds_sequence_matches_jax(monkeypatch):
+    """opponent="mixed" picks its iteration with the JAX trainer's numpy
+    call, so the sequence of kinds is the same for a seed."""
+    seqs = {"jax": [], "torch": []}
+
+    def fake_jax(config, net, optimizer, bank=None):
+        def it(ts, env_state, buffer, key):
+            seqs["jax"].append(config.opponent)
+            return ts, env_state, buffer, key, jnp.float32(0)
+        return it, jdqn.make_opponent_fn(dataclasses_replace(config, opponent="random"), net)
+
+    def fake_torch(config):
+        def it(ts, env_state, buffer, generator):
+            seqs["torch"].append(config.opponent)
+            return env_state, buffer, torch.zeros(())
+        return it, tdqn.make_opponent_fn(dataclasses_replace(config, opponent="random"))
+
+    monkeypatch.setattr(jdqn, "make_train_iteration", fake_jax)
+    monkeypatch.setattr(jdqn, "make_eval_fn", lambda *a: (lambda *b: (0, 0, 0)))
+    monkeypatch.setattr(tdqn, "make_train_iteration", fake_torch)
+    monkeypatch.setattr(tdqn, "make_eval_fn", lambda *a: (lambda *b: (0, 0, 0)))
+    kw = dict(opponent="mixed", seed=11, epoch=3, step_per_epoch=8, buffer_size=64,
+              num_envs=8, hidden_sizes=(8,))
+    jdqn.train(jdqn.DQNConfig(**kw))
+    tdqn.train(tdqn.DQNConfig(**kw), device=CPU)
+    assert len(seqs["jax"]) == 24 and set(seqs["jax"]) == {"random", "greedy", "self"}
+    assert seqs["torch"] == seqs["jax"]
+
+
+@pytest.mark.parametrize("opponent", ["greedy", "mixed"])
+def test_greedy_and_mixed_training_runs(opponent):
+    config = small_config(opponent=opponent, greedy_depth=1, step_per_epoch=4,
+                          learner_player="both")
+    ts, history = tdqn.train(config, generations=2, device=CPU)
+    assert len(history) == 2
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert history[-1]["grad_steps"] == 2 * 4 * config.update_per_collect
+    assert history[-1]["wins"] + history[-1]["losses_games"] + history[-1]["other"] > 0

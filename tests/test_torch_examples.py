@@ -1,0 +1,88 @@
+"""The torch port's tournament and DQN command line: match accounting, the
+metrics logger, and a tiny CLI training run whose ``--full-resume-dir``
+relaunch continues the schedule."""
+
+import json
+
+import pytest
+import torch
+
+from gobblet_rl_torch.eval import tournament
+from gobblet_rl_torch.examples import example_dqn
+from gobblet_rl_torch.train import checkpoint as ckpt
+from gobblet_rl_torch.train.logging import make_logger
+
+CPU = torch.device("cpu")
+
+
+def test_match_accounting():
+    m = tournament.play_match(tournament.random_policy(), tournament.random_policy(),
+                              num_games=128, seed=0, device=CPU)
+    assert m["games"] == 128
+    assert m["wins"] + m["losses"] + m["undecided"] == 128
+    assert m["undecided"] <= 10  # random games essentially always finish
+    again = tournament.play_match(tournament.random_policy(), tournament.random_policy(),
+                                  num_games=128, seed=0, device=CPU)
+    assert again == m
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread per test: the suite runs in several worker
+    processes on a few cores, where torch's thread pools would oversubscribe
+    them and small ops slow down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_greedy_beats_random_in_a_match():
+    m = tournament.play_match(tournament.greedy_policy(1), tournament.random_policy(),
+                              num_games=64, seed=1, swap_colors=False, device=CPU)
+    assert m["win_rate"] > 0.8, m
+
+
+def test_metrics_logger(tmp_path):
+    logger = make_logger(str(tmp_path / "log"), {"seed": 1})
+    logger.log({"loss": 0.5, "win_rate": 0.9, "grad_steps": 10})
+    logger.close()
+    lines = (tmp_path / "log" / "history.jsonl").read_text().strip().split("\n")
+    assert json.loads(lines[0])["loss"] == 0.5
+
+
+def cli_args(tmp_path, *extra):
+    return example_dqn.get_parser().parse_args([
+        "--device", "cpu", "--logdir", str(tmp_path / "log"), "--opponent", "random",
+        "--both-seats", "--training-num", "32", "--buffer-size", "1024",
+        "--step-per-epoch", "2", "--step-per-collect", "4", "--batch-size", "64",
+        "--hidden-sizes", "32", "32", "--full-resume-dir", str(tmp_path / "resume"), *extra])
+
+
+def test_cli_trains_and_resumes(tmp_path):
+    ts, history = example_dqn.main(cli_args(tmp_path, "--epoch", "1"))
+    assert [h["epoch"] for h in history] == [0]
+    logdir = tmp_path / "log" / "gobblet_rl_torch" / "dqn"
+    records = [json.loads(x) for x in (logdir / "history.jsonl").read_text().splitlines()]
+    assert len(records) == 1 and records[0]["grad_steps"] == ts.grad_steps == 4
+    assert ckpt.latest_step(str(logdir / "ckpt")) == 4
+    assert ckpt.latest_step(str(tmp_path / "resume")) == 0
+
+    ts2, history2 = example_dqn.main(cli_args(tmp_path, "--epoch", "2"))
+    assert [h["epoch"] for h in history2] == [1]
+    assert ts2.grad_steps == 2 * ts.grad_steps
+    assert len((logdir / "history.jsonl").read_text().splitlines()) == 2
+    ts3, history3 = example_dqn.main(cli_args(tmp_path, "--epoch", "2"))
+    assert history3 == [] and ts3.grad_steps == ts2.grad_steps
+
+
+def test_cli_config_and_host_modes():
+    args = example_dqn.get_parser().parse_args(
+        ["--step-per-collect", "8", "--update-per-step", "0.25", "--agent-id", "1"])
+    config = example_dqn.make_config(args)
+    assert args.device == "cuda"
+    assert config.update_per_collect == 2 and config.learner_player == 0
+    assert config.segment_len == 8 and config.opponent == "random"
+    for flag in (["--watch"], ["--cpu-players", "1"]):
+        with pytest.raises(NotImplementedError, match="host surface"):
+            example_dqn.main(example_dqn.get_parser().parse_args(flag))
