@@ -21,7 +21,7 @@ its plain PyTorch version:
 6. the kernel line: launches on the main path (phases 4-5), agreement with
    the plain version at the main path's shape, times and the bound (the
    larger of bytes over HBM bandwidth and the ply loop's instructions over
-   the SMs' integer rates; see the constants below), printed after 7-11;
+   the SMs' integer rates; see the constants below), printed after 7-14;
 7. the batched depth-2 greedy on 262,144 positions 5 plies deep (1 warm-up,
    3 calls timed by CUDA events, peak memory); every action legal, and on
    4,096 positions one injected Gumbel field gives the same actions on the
@@ -39,9 +39,29 @@ its plain PyTorch version:
     over 64 plies at B=524,288;
 11. the zoo agent ``dqn_greedy`` on the card: Q-values on 4,096 positions
     against the CPU's, then 2,048 games against the depth-2 greedy with
-    colours swapped (win rate at least 0.80).
+    colours swapped (win rate at least 0.80);
+12. the Gumbel search (32 simulations) on 1,024 positions 5 plies deep with
+    a float32 conv net and one injected noise field, on the card and on the
+    CPU: at least 0.99 of the roots with identical actions and visits, every
+    action legal; then two calls at 2,048 roots timed, its peak memory, and
+    one call under torch.profiler (device kernel time, idle share);
+13. the AlphaZero iteration of ``bench.py`` at full width (2,048 envs, 32
+    simulations, segment 48, conv 64x2, 8 updates of 2,048): 1 warm-up and
+    2 timed iterations split by CUDA events into self-play segment,
+    outcomes + flatten and updates; loss finite, policy targets on the legal
+    actions summing to 1, decisive winners, params changed, no rollout
+    kernel launched; then ``alphazero.train`` at 256 envs for 2 iterations
+    with ``full_resume_dir``, relaunched for a third, once with the Gumbel
+    search and once with PUCT (``AZConfig``'s default: root Dirichlet noise,
+    visit sampling for the first 8 plies): the restored payload equals the
+    saved one, tensor for tensor, and every segment's targets pass the
+    checks above;
+14. the zoo agent ``alphazero_gumbel32`` on the card: logits and values on
+    4,096 positions against the CPU's, then 512 games against the depth-2
+    greedy with colours swapped at the manifest's 128 simulations (win rate
+    at least 0.85).
 
-Phases 7-11 each print one JSON line with the card's name and power limit
+Phases 7-14 each print one JSON line with the card's name and power limit
 and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
@@ -73,6 +93,11 @@ DQN = dict(num_envs=262144, buffer_size=4194304, batch_size=4096, segment_len=16
 GREEDY_B, GREEDY_PARITY_B, ZOO_GAMES, ZOO_MIN_WIN_RATE = 262144, 4096, 2048, 0.80
 CLI_ARGS = ["--opponent", "mixed", "--both-seats", "--training-num", "16384",
             "--step-per-epoch", "2"]
+# The AlphaZero iteration of bench.py (bench.py:65-70, 233-237), not cut.
+AZ = dict(search="gumbel_lm", num_sims=32, num_envs=2048, segment_len=48, model="conv",
+          channels=64, blocks=2, batch_size=2048, updates_per_iter=8)
+SEARCH_PARITY_B, SEARCH_MIN_SAME = 1024, 0.99
+AZ_RESUME_ENVS, AZ_ZOO_GAMES, AZ_ZOO_MIN_WIN_RATE = 256, 512, 0.85
 
 # The bound.  Bytes: HBM at 3.35e12 B/s (NVIDIA's H100 SXM data sheet).
 # Operations: the machine instructions of the kernel's ply loop, read from
@@ -313,15 +338,15 @@ def tree_equal(a, b, path="payload") -> int:
     on the CPU); returns the number of tensors compared."""
     if isinstance(a, torch.Tensor):
         check(isinstance(b, torch.Tensor) and a.dtype == b.dtype
-              and torch.equal(a.cpu(), b.cpu()), f"cli resume: {path} restored exactly")
+              and torch.equal(a.cpu(), b.cpu()), f"resume: {path} restored exactly")
         return 1
     if isinstance(a, dict):
-        check(isinstance(b, dict) and a.keys() == b.keys(), f"cli resume: {path} keys")
+        check(isinstance(b, dict) and a.keys() == b.keys(), f"resume: {path} keys")
         return sum(tree_equal(a[k], b[k], f"{path}.{k}") for k in a)
     if isinstance(a, (list, tuple)):
-        check(len(a) == len(b), f"cli resume: {path} length")
+        check(len(a) == len(b), f"resume: {path} length")
         return sum(tree_equal(x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b)))
-    check(a == b, f"cli resume: {path} == {b!r}")
+    check(a == b, f"resume: {path} == {b!r}")
     return 0
 
 
@@ -433,6 +458,234 @@ def phase_zoo(smi: str, gen: torch.Generator) -> None:
     log(json.dumps({"metric": "zoo_dqn_greedy_vs_greedy2", "device": smi, **match,
                     "manifest_vs_greedy_2": entry["metrics"]["vs_greedy-2"],
                     "q_positions": GREEDY_PARITY_B, "q_max_abs_err": q_err, "q_tolerance": tol,
+                    "match_s": match_s, "seconds": time.perf_counter() - t0}))
+
+
+def phase_search(smi: str, gen: torch.Generator) -> None:
+    """12. the Gumbel search on the card against the CPU, then its time at
+    the AlphaZero width."""
+    from gobblet_rl_torch.models import actor_critic as ac
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.search import gumbel, gumbel_lm
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    cfg = gumbel.GumbelConfig(num_sims=AZ["num_sims"])
+    net = ac.ConvActorCritic(channels=AZ["channels"], blocks=AZ["blocks"], dtype=torch.float32,
+                             device=dev)
+    net.reset_parameters(gen)
+    cpu_net = ac.ConvActorCritic(channels=AZ["channels"], blocks=AZ["blocks"],
+                                 dtype=torch.float32, device="cpu")
+    cpu_net.load_state_dict(net.state_dict())
+    n = SEARCH_PARITY_B
+    state, _ = bc.rollout_random(bc.reset_planes(n, dev), gen, 5)
+    noise = bc.gumbel_field(gen, (54, n), dev)
+    card = gumbel_lm.gumbel_search_lm(net, state.board, state.current, None, cfg, noise=noise)
+    w0 = time.perf_counter()
+    cpu = gumbel_lm.gumbel_search_lm(cpu_net, state.board.cpu(), state.current.cpu(), None, cfg,
+                                     noise=noise.cpu())
+    cpu_s = time.perf_counter() - w0
+    same = (card[0].cpu() == cpu[0]) & (card[3].cpu() == cpu[3]).all(-1)
+    share = float(same.float().mean())
+    check(share >= SEARCH_MIN_SAME, f"search: {share:.4f} of roots identical on card and CPU "
+          f">= {SEARCH_MIN_SAME}")
+    mask = bc.legal_mask_planes(state.board, state.current)
+    check(bool(mask[card[0].long(), torch.arange(n, device=dev)].all()),
+          "search: every action legal")
+
+    # time at the trainer's width and dtype (bf16 net): 1 warm-up, 2 timed
+    B = AZ["num_envs"]
+    net = ac.ConvActorCritic(channels=AZ["channels"], blocks=AZ["blocks"], device=dev)
+    net.reset_parameters(gen)
+    state, _ = bc.rollout_random(bc.reset_planes(B, dev), gen, 5)
+    torch.cuda.reset_peak_memory_stats()
+    _, ms = timed(lambda: gumbel_lm.gumbel_search_lm(net, state.board, state.current, gen, cfg), 3)
+    timings = ms[1:]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host_ms = statistics.median(timings)
+
+    # the card's share of one call: kernel time by torch.profiler (CUPTI),
+    # against the unprofiled call time above
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gumbel_lm.gumbel_search_lm(net, state.board, state.current, gen, cfg)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    profile_line = {
+        "device_kernel_ms": busy_ms if busy_ms > 0 else "not measured",
+        "device_kernels": sum(e.count for e in kernels),
+        "self_device_ms_all_rows": sum(e.self_device_time_total for e in rows) / 1e3,
+        "device_idle_share": 1 - busy_ms / host_ms if busy_ms > 0 else "not measured",
+        "host_ops": sum(e.count for e in rows if e.device_type == torch.autograd.DeviceType.CPU),
+        "top_kernels_ms": {e.key[:80]: e.device_time_total / 1e3
+                           for e in sorted(kernels, key=lambda e: -e.device_time_total)[:6]},
+    }
+    log(json.dumps({"metric": "gumbel_search_ms", "device": smi, "batch": B,
+                    "num_sims": cfg.num_sims, "net": f"conv {AZ['channels']}x{AZ['blocks']} bf16",
+                    "ms": timings, "ms_per_sim": host_ms / cfg.num_sims,
+                    "peak_mem_gib": peak, "profile": profile_line,
+                    "cpu_parity_positions": n, "cpu_parity_same_share": share,
+                    "cpu_parity_differing_roots": int((~same).sum()), "cpu_search_s": cpu_s,
+                    "seconds": time.perf_counter() - t0}))
+
+
+def check_segment(traj: dict, what: str) -> None:
+    """A self-play segment's targets: pi is a distribution on the legal
+    actions, and every finished game has a decisive winner."""
+    pi, mask = traj["pi"], traj["mask"]
+    check(bool((pi[~mask] == 0).all()) and bool((pi >= 0).all()),
+          f"{what}: pi is 0 off the legal actions")
+    check(float((pi.sum(-1) - 1).abs().max()) < 1e-5, f"{what}: each pi row sums to 1")
+    done, winner = traj["done"], traj["winner"]
+    check(bool(done.any()) and bool((winner[done] != 0).all()),
+          f"{what}: every finished game has a decisive winner")
+
+
+def phase_alphazero(smi: str, gen: torch.Generator) -> None:
+    """13. the AlphaZero iteration at full width, split by phase, then
+    ``alphazero.train`` with a full resume point, relaunched."""
+    from gobblet_rl_torch.kernels import rollout as R
+    from gobblet_rl_torch.train import alphazero
+    from gobblet_rl_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    config = alphazero.AZConfig(**AZ)
+    R.rollout_random_fused.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    st = alphazero.init_alphazero(config, gen)
+    it = alphazero.make_train_iteration(config)
+    it(st, gen)                                      # warm-up
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in st.net.state_dict().items()}
+    segments = []
+    real_flatten = alphazero.flatten_segment
+
+    def recording_flatten(traj, z, valid):
+        segments.append(traj)
+        return real_flatten(traj, z, valid)
+
+    runs = []
+    alphazero.flatten_segment = recording_flatten
+    try:
+        for _ in range(2):
+            marks = []
+            mark = cuda_mark(marks)
+            w0 = time.perf_counter()
+            mark("start")
+            stats = it(st, gen, mark=mark)
+            loss = float(stats["loss"])  # synchronises
+            wall_s = time.perf_counter() - w0
+            check(math.isfinite(loss), "alphazero: loss finite")
+            phases = {name: prev.elapsed_time(event)
+                      for (_, prev), (name, event) in zip(marks, marks[1:])}
+            runs.append({"iteration_ms": 1e3 * wall_s, **{f"{k}_ms": v for k, v in phases.items()},
+                         "loss": loss, "episodes": int(stats["episodes"]),
+                         "valid_frac": float(stats["valid_frac"])})
+    finally:
+        alphazero.flatten_segment = real_flatten
+    az_launches = R.rollout_random_fused.launches
+    check(az_launches == 0, "alphazero: the path launches no rollout kernel")
+    for traj in segments:
+        check_segment(traj, "alphazero")
+    check(any(not torch.equal(before[k], v) for k, v in st.net.state_dict().items()),
+          "alphazero: the params changed")
+    steps = config.num_envs * config.segment_len
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del st, segments
+
+    # exact resume of train(), with the Gumbel search of the iteration above
+    # and with PUCT (AZConfig's default search, root Dirichlet noise and
+    # visit sampling drawn from the generator)
+    resumes = {}
+    real_save, real_restore = ckpt.save_payload, ckpt.restore_payload
+    for search in ("gumbel_lm", "puct"):
+        saved, restored, segments = {}, {}, []
+
+        def recording_save(directory, payload, step, meta=None):
+            saved[step] = clone_tree(payload)
+            real_save(directory, payload, step, meta)
+
+        def recording_restore(directory, step=None):
+            payload, step = real_restore(directory, step)
+            if payload is not None:
+                restored[step] = clone_tree(payload)
+            return payload, step
+
+        def recording_flatten(traj, z, valid):
+            segments.append(traj)
+            return real_flatten(traj, z, valid)
+
+        small = dict(AZ, num_envs=AZ_RESUME_ENVS, search=search)
+        ckpt.save_payload, ckpt.restore_payload = recording_save, recording_restore
+        alphazero.flatten_segment = recording_flatten
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                resume = os.path.join(tmp, "resume")
+                w0 = time.perf_counter()
+                _, hist1 = alphazero.train(alphazero.AZConfig(**small, iterations=2),
+                                           full_resume_dir=resume, device=gen.device)
+                s1 = time.perf_counter() - w0
+                w0 = time.perf_counter()
+                _, hist2 = alphazero.train(alphazero.AZConfig(**small, iterations=3),
+                                           full_resume_dir=resume, device=gen.device)
+                s2 = time.perf_counter() - w0
+        finally:
+            ckpt.save_payload, ckpt.restore_payload = real_save, real_restore
+            alphazero.flatten_segment = real_flatten
+        what = f"alphazero train ({search})"
+        check([h["iteration"] for h in hist1] == [0, 1], f"{what}: iterations 0 and 1")
+        check([h["iteration"] for h in hist2] == [2], f"{what}: the relaunch runs iteration 2")
+        check(list(restored) == [1] and 1 in saved, f"{what}: step 1 saved and restored")
+        check(all(math.isfinite(h["loss"]) for h in hist1 + hist2), f"{what}: loss finite")
+        check(len(segments) == 3, f"{what}: three segments")
+        for traj in segments:
+            check_segment(traj, what)
+        resumes[search] = {"num_envs": AZ_RESUME_ENVS, "first_launch_s": s1, "relaunch_s": s2,
+                           "restored_tensors_equal": tree_equal(restored[1], saved[1]),
+                           "records": hist1 + hist2}
+    log(json.dumps({"metric": "az_train_iteration", "device": smi, **AZ,
+                    "az_train_env_steps_per_sec": [steps / (r["iteration_ms"] / 1e3) for r in runs],
+                    "sims_per_sec": [steps * config.num_sims / (r["iteration_ms"] / 1e3)
+                                     for r in runs],
+                    "runs": runs, "peak_mem_gib": peak, "rollout_kernel_launches": az_launches,
+                    "resume": resumes, "seconds": time.perf_counter() - t0}))
+
+
+def phase_az_zoo(smi: str, gen: torch.Generator) -> None:
+    """14. the committed alphazero_gumbel32 agent on the card."""
+    from gobblet_rl_torch import zoo
+    from gobblet_rl_torch.eval import tournament
+    from gobblet_rl_torch.ops import batched_core as bc
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    net, _, entry = zoo.load("alphazero_gumbel32", expect_family="alphazero", device=dev)
+    cpu_net, _, _ = zoo.load("alphazero_gumbel32", device="cpu")
+    state, _ = bc.rollout_random(bc.reset_planes(GREEDY_PARITY_B, dev), gen, 10)
+    obs = bc.features_lm(state.board, state.current).t()
+    errs = {}
+    with torch.no_grad():
+        for name, card, cpu in zip(("logits", "value"), net(obs), cpu_net(obs.cpu())):
+            tol = 2e-2 * float(cpu.abs().max())
+            errs[name] = (float((card.cpu() - cpu).abs().max()), tol)
+            check(errs[name][0] <= tol, f"az zoo: {name} on the card within {tol:.4g} of the CPU's")
+    w0 = time.perf_counter()
+    match = tournament.play_match(zoo.policy("alphazero_gumbel32", device=dev),
+                                  tournament.greedy_policy(2), num_games=AZ_ZOO_GAMES, seed=0,
+                                  device=dev)
+    match_s = time.perf_counter() - w0
+    check(match["win_rate"] >= AZ_ZOO_MIN_WIN_RATE,
+          f"az zoo: alphazero_gumbel32 vs greedy-2 win rate {match['win_rate']:.3f} >= "
+          f"{AZ_ZOO_MIN_WIN_RATE}")
+    log(json.dumps({"metric": "zoo_alphazero_gumbel32_vs_greedy2", "device": smi, **match,
+                    "num_sims": entry["eval"]["num_sims"],
+                    "manifest_vs_greedy_2": entry["metrics"]["vs_greedy-2"],
+                    "positions": GREEDY_PARITY_B,
+                    "max_abs_err": {k: v[0] for k, v in errs.items()},
+                    "tolerance": {k: v[1] for k, v in errs.items()},
                     "match_s": match_s, "seconds": time.perf_counter() - t0}))
 
 
@@ -620,6 +873,11 @@ def main() -> int:
     phase_cli_resume(smi)
     phase_vector(smi, gen)
     phase_zoo(smi, gen)
+
+    # 12-14. the AlphaZero family; its path launches no kernel -------------
+    phase_search(smi, gen)
+    phase_alphazero(smi, gen)
+    phase_az_zoo(smi, gen)
 
     log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "

@@ -1,0 +1,116 @@
+"""AlphaZero self-play training entry point of the torch port.
+
+    python -m gobblet_rl_torch.examples.example_alphazero --search gumbel --num-sims 32
+
+Port of ``gobblet_rl_tpu/examples/example_alphazero.py`` in training mode,
+with the same flags; ``--device`` defaults to ``cuda``.  History goes to
+``<logdir>/gobblet_rl_torch/alphazero/history.jsonl``;
+``--checkpoint-dir`` saves and resumes the net, optimizer and env batch,
+``--full-resume-dir`` also the generator, so a preempted run relaunched
+with the same flags continues bit for bit.  After training, the search
+agent plays ``--eval-games`` games against random, greedy-1 and greedy-2.
+
+Not ported yet: ``--watch`` (one rendered game on the host surface,
+ROADMAP A.17) and ``--eval-alphabeta-depth > 0`` (the native alpha-beta
+expert, ROADMAP A.14); both raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def get_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--lr", type=float, default=2e-3)
+    parser.add_argument("--iterations", type=int, default=32)
+    parser.add_argument("--num-envs", type=int, default=256)
+    parser.add_argument("--num-sims", type=int, default=64)
+    parser.add_argument("--segment-len", type=int, default=48)
+    parser.add_argument("--temp-moves", type=int, default=8)
+    parser.add_argument("--search", type=str, default="puct", choices=["puct", "gumbel"],
+                        help="gumbel (sequential halving) needs ~2-4x fewer sims per move "
+                        "than puct")
+    parser.add_argument("--max-considered", type=int, default=16,
+                        help="gumbel: initial root candidate count")
+    parser.add_argument("--model", type=str, default="conv", choices=["conv", "mlp"])
+    parser.add_argument("--logdir", type=str, default="log")
+    parser.add_argument("--checkpoint-dir", type=str, default=None,
+                        help="save/resume the net, optimizer and env batch every iteration")
+    parser.add_argument("--full-resume-dir", type=str, default=None,
+                        help="exact preemption resume: also checkpoints the generator, so "
+                        "an interrupted run reproduces the uninterrupted one bit for bit")
+    parser.add_argument("--eval-games", type=int, default=256,
+                        help="post-training tournament games vs each baseline (0 to skip)")
+    parser.add_argument("--eval-sims", type=int, default=128)
+    parser.add_argument("--watch", default=False, action="store_true",
+                        help="skip training; render one game on the host surface (not "
+                        "ported yet)")
+    parser.add_argument("--render_mode", type=str, default="text",
+                        choices=["human", "text", "text_full", "rgb_array"])
+    parser.add_argument("--opponent", type=str, default="greedy",
+                        choices=["greedy", "random", "alphabeta"])
+    parser.add_argument("--eval-alphabeta-depth", type=int, default=0,
+                        help="if > 0, also evaluate vs the native alpha-beta expert at this "
+                        "depth (not ported yet)")
+    parser.add_argument("--agent-id", type=int, default=1, choices=[1, 2],
+                        help="which seat the search agent takes in --watch")
+    parser.add_argument("--zoo", type=str, default="",
+                        help="--watch with a committed zoo entry (e.g. alphazero_gumbel32)")
+    parser.add_argument("--device", type=str, default="cuda")
+    return parser
+
+
+def main(args=None):
+    """Train (and evaluate); returns ``(AZState, history)``."""
+    args = args or get_parser().parse_known_args()[0]
+    if args.watch:
+        raise NotImplementedError(
+            "--watch plays on the host surface (the AEC env, rendering, the host search "
+            "agent: ROADMAP A.17), not ported yet")
+    if args.eval_alphabeta_depth > 0:
+        raise NotImplementedError(
+            "--eval-alphabeta-depth needs the native alpha-beta policy (ROADMAP A.14), "
+            "not ported yet")
+    from gobblet_rl_torch.eval import tournament
+    from gobblet_rl_torch.train import alphazero
+    from gobblet_rl_torch.train.logging import make_logger
+
+    config = alphazero.AZConfig(
+        seed=args.seed,
+        lr=args.lr,
+        iterations=args.iterations,
+        num_envs=args.num_envs,
+        num_sims=args.num_sims,
+        segment_len=args.segment_len,
+        temp_moves=args.temp_moves,
+        search=args.search,
+        max_considered=args.max_considered,
+        model=args.model,
+    )
+    logger = make_logger(os.path.join(args.logdir, "gobblet_rl_torch", "alphazero"), vars(args))
+    try:
+        st, history = alphazero.train(config, logger=logger, checkpoint_dir=args.checkpoint_dir,
+                                      full_resume_dir=args.full_resume_dir, device=args.device)
+    finally:
+        logger.close()
+    print(f"final: {history[-1] if history else 'resumed at end'}")
+
+    if args.eval_games:
+        pol = alphazero.az_policy(st.net, num_sims=args.eval_sims)
+        opponents = [
+            ("random", tournament.random_policy()),
+            ("greedy-1", tournament.greedy_policy(1)),
+            ("greedy-2", tournament.greedy_policy(2)),
+        ]
+        for name, opp in opponents:
+            res = tournament.play_match(pol, opp, num_games=args.eval_games, seed=args.seed,
+                                        device=args.device)
+            print(f"alphazero vs {name}: {res}")
+    return st, history
+
+
+if __name__ == "__main__":
+    main()

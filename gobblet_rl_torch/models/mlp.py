@@ -20,6 +20,16 @@ from torch.nn.utils import skip_init
 from gobblet_rl_torch.device import resolve_device
 
 
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's default kernel init, in place: a normal truncated at two
+    standard deviations, variance 1/fan_in, drawn from ``generator``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
+    weight.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+    weight.erfinv_().mul_(std * math.sqrt(2.0))
+
+
 class QNet(nn.Module):
     """MLP Q-net on ``device`` (``None``: the CUDA card, or raise).  Layers
     are built without initialisation (no draw from the global RNG);
@@ -47,11 +57,7 @@ class QNet(nn.Module):
         at two standard deviations, variance 1/fan_in) and zero biases."""
         for layer in self.modules():
             if isinstance(layer, nn.Linear):
-                std = math.sqrt(1.0 / layer.in_features) / 0.87962566103423978
-                lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
-                w = layer.weight
-                w.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
-                w.erfinv_().mul_(std * math.sqrt(2.0))
+                lecun_normal_(layer.weight, layer.in_features, generator)
                 layer.bias.zero_()
 
     def _linear(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:

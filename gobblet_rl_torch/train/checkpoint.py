@@ -1,4 +1,5 @@
-"""Checkpoints of the DQN training state, and exact resume points.
+"""Checkpoints of the DQN and AlphaZero training states, and exact resume
+points.
 
 Port of ``gobblet_rl_tpu/train/checkpoint.py`` with its own on-disk format:
 each step is one ``ckpt-<step>.pt`` file written by ``torch.save`` from
@@ -13,7 +14,9 @@ continue bit for bit: the learner, target and opponent nets, the Adam state
 and ``grad_steps``, the env batch, the replay ring with its cursor, and the
 torch generator's state.  Host-side state that is not a tensor (the numpy
 generator of the mixed opponent) goes into the JSON sidecar
-``meta-<step>.json``, written before the payload.
+``meta-<step>.json``, written before the payload.  An AlphaZero resume
+point (:func:`save_az` with a generator) holds the net, the AdamW state,
+the env batch and the generator's state.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import os
 import re
 
 import torch
+
+from gobblet_rl_torch.ops.batched_core import PlanesState
 
 MAX_TO_KEEP = 3
 _CKPT = re.compile(r"^ckpt-(\d+)\.pt$")
@@ -155,6 +160,35 @@ def restore_full(directory: str, train_state, generator: torch.Generator):
         payload[part] = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
                          for k, v in payload[part].items()}
     return payload, step
+
+
+def save_az(directory: str, az_state, step: int, generator: torch.Generator | None = None) -> None:
+    """An AlphaZero ``AZState`` (net, optimizer, env batch) as step
+    ``step``; with ``generator``, its state too: a full resume point."""
+    payload = {"net": az_state.net.state_dict(), "optimizer": az_state.optimizer.state_dict(),
+               "env_state": az_state.env_state._asdict()}
+    if generator is not None:
+        payload["generator"] = generator.get_state()
+    save_payload(directory, payload, step)
+
+
+def restore_az(directory: str, az_state, generator: torch.Generator | None = None) -> int | None:
+    """Load the newest :func:`save_az` step into ``az_state`` (the env batch
+    on the net's device) and, if given, ``generator``, in place; returns
+    the step, or None when nothing is saved."""
+    payload, step = restore_payload(directory)
+    if payload is None:
+        return None
+    if generator is not None and "generator" not in payload:
+        raise RuntimeError(f"checkpoint step {step} in {directory!r} holds no generator "
+                           f"state; cannot resume bit-exactly")
+    az_state.net.load_state_dict(payload["net"])
+    az_state.optimizer.load_state_dict(payload["optimizer"])
+    dev = next(az_state.net.parameters()).device
+    az_state.env_state = PlanesState(**{k: v.to(dev) for k, v in payload["env_state"].items()})
+    if generator is not None:
+        generator.set_state(payload["generator"])
+    return step
 
 
 def save_params(path: str, net: torch.nn.Module) -> None:

@@ -1,17 +1,17 @@
 """Trained-agent zoo: the committed agents, loaded into torch modules.
 
-Port of ``gobblet_rl_tpu/zoo/__init__.py`` for the ``dqn`` family.  The
-agents are the flax-serialized parameter blobs and the ``manifest.json``
-committed in ``gobblet_rl_tpu/zoo/``; this module reads them by path (or
-from ``$GOBBLET_ZOO_DIR``), decodes them with its own msgpack reader
-(:mod:`gobblet_rl_torch.zoo.flax_msgpack`) and carries the weights across
-with :func:`gobblet_rl_torch.models.convert.qnet_params_from_flax`:
+Port of ``gobblet_rl_tpu/zoo/__init__.py`` for the ``dqn`` and
+``alphazero`` families.  The agents are the flax-serialized parameter
+blobs and the ``manifest.json`` committed in ``gobblet_rl_tpu/zoo/``; this
+module reads them by path (or from ``$GOBBLET_ZOO_DIR``), decodes them with
+its own msgpack reader (:mod:`gobblet_rl_torch.zoo.flax_msgpack`) and
+carries the weights across with :mod:`gobblet_rl_torch.models.convert`:
 
     from gobblet_rl_torch import zoo
-    net, params, meta = zoo.load("dqn_greedy")   # QNet on the card
-    policy = zoo.policy("dqn_greedy")            # eval/tournament policy
+    net, params, meta = zoo.load("alphazero_gumbel32")   # ConvActorCritic on the card
+    policy = zoo.policy("alphazero_gumbel32")            # eval/tournament policy
 
-The ``alphazero`` and ``ppo`` families wait for their models' port.
+The ``ppo`` family waits for the PPO policy's port.
 """
 
 from __future__ import annotations
@@ -22,13 +22,14 @@ from pathlib import Path
 from typing import Any, Dict, Tuple
 
 from gobblet_rl_torch.eval import tournament
-from gobblet_rl_torch.models.convert import qnet_params_from_flax
+from gobblet_rl_torch.models import actor_critic as ac
+from gobblet_rl_torch.models.convert import actor_critic_params_from_flax, qnet_params_from_flax
 from gobblet_rl_torch.models.mlp import QNet
+from gobblet_rl_torch.train import alphazero
 from gobblet_rl_torch.zoo import flax_msgpack
 
 _NOT_PORTED = {
-    "alphazero": "the AlphaZero models and search (ROADMAP A.11)",
-    "ppo": "the PPO actor-critic (ROADMAP A.12)",
+    "ppo": "the PPO policy and trainer (ROADMAP A.12)",
 }
 
 
@@ -75,21 +76,32 @@ def load(name: str, expect_family: str | None = None,
     if family in _NOT_PORTED:
         raise NotImplementedError(
             f"zoo entry {name!r} is family {family!r}, which needs "
-            f"{_NOT_PORTED[family]}, not ported yet; the dqn family loads")
-    if family != "dqn":
+            f"{_NOT_PORTED[family]}, not ported yet; the dqn and alphazero families load")
+    if family not in ("dqn", "alphazero"):
         raise ValueError(f"unknown zoo family {family!r}")
 
     with open(os.path.join(_zoo_dir(), entry["file"]), "rb") as f:
         params = flax_msgpack.msgpack_restore(f.read())
     net_cfg = entry["net"]
-    net = QNet(hidden_sizes=tuple(net_cfg["hidden_sizes"]), dueling=net_cfg["dueling"],
-               device=device)
-    net.load_state_dict(qnet_params_from_flax(params, dueling=net_cfg["dueling"]))
+    if family == "dqn":
+        net = QNet(hidden_sizes=tuple(net_cfg["hidden_sizes"]), dueling=net_cfg["dueling"],
+                   device=device)
+        net.load_state_dict(qnet_params_from_flax(params, dueling=net_cfg["dueling"]))
+    else:
+        if net_cfg["model"] == "conv":
+            net = ac.ConvActorCritic(channels=net_cfg["channels"], blocks=net_cfg["blocks"],
+                                     device=device)
+        else:
+            net = ac.MLPActorCritic(hidden_sizes=tuple(net_cfg["hidden_sizes"]), device=device)
+        net.load_state_dict(actor_critic_params_from_flax(params, net_cfg["model"]))
     return net, params, entry
 
 
 def policy(name: str, device=None, **overrides):
     """Tournament policy ``(generator, board, current) -> actions`` of a
-    zoo entry; ``overrides`` tune its evaluation (``eps`` for dqn)."""
-    net, _, _ = load(name, device=device)
+    zoo entry; ``overrides`` tune its evaluation: ``num_sims``/``c_puct``
+    for alphazero (over the manifest's ``eval`` row), ``eps`` for dqn."""
+    net, _, entry = load(name, device=device)
+    if entry["family"] == "alphazero":
+        return alphazero.az_policy(net, **{**entry.get("eval", {}), **overrides})
     return tournament.dqn_policy(net, **overrides)

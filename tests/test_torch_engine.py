@@ -92,7 +92,7 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 27  # every module was imported
+    assert int(out.stdout.strip()) >= 35  # every module was imported
 
 
 def test_source_scan_no_jax_imports():
@@ -100,7 +100,7 @@ def test_source_scan_no_jax_imports():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|msgpack|gobblet_rl_tpu)\b", re.M)
     hits = [f"{f.name}: {m.group(0).strip()}" for f in files for m in pattern.finditer(f.read_text())]
     assert not hits, hits
-    assert len(files) >= 28
+    assert len(files) >= 36
 
 
 def test_device_none_means_cuda():

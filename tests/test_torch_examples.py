@@ -1,6 +1,7 @@
-"""The torch port's tournament and DQN command line: match accounting, the
-metrics logger, and a tiny CLI training run whose ``--full-resume-dir``
-relaunch continues the schedule."""
+"""The torch port's tournament and command lines: match accounting, the
+metrics logger, a tiny DQN CLI training run whose ``--full-resume-dir``
+relaunch continues the schedule, and a tiny AlphaZero CLI run with its
+evaluation."""
 
 import json
 
@@ -8,7 +9,7 @@ import pytest
 import torch
 
 from gobblet_rl_torch.eval import tournament
-from gobblet_rl_torch.examples import example_dqn
+from gobblet_rl_torch.examples import example_alphazero, example_dqn
 from gobblet_rl_torch.train import checkpoint as ckpt
 from gobblet_rl_torch.train.logging import make_logger
 
@@ -86,3 +87,35 @@ def test_cli_config_and_host_modes():
     for flag in (["--watch"], ["--cpu-players", "1"]):
         with pytest.raises(NotImplementedError, match="host surface"):
             example_dqn.main(example_dqn.get_parser().parse_args(flag))
+
+
+def az_args(tmp_path, *extra):
+    return example_alphazero.get_parser().parse_args([
+        "--device", "cpu", "--logdir", str(tmp_path / "log"), "--num-envs", "8",
+        "--num-sims", "6", "--segment-len", "8", "--model", "mlp", "--eval-sims", "4", *extra])
+
+
+@pytest.mark.parametrize("search", ["gumbel", "puct"])
+def test_alphazero_cli_trains_and_evaluates(tmp_path, capsys, search):
+    st, history = example_alphazero.main(az_args(
+        tmp_path, "--search", search, "--iterations", "2", "--eval-games", "8",
+        "--full-resume-dir", str(tmp_path / "resume")))
+    assert [h["iteration"] for h in history] == [0, 1]
+    out = capsys.readouterr().out
+    for name in ("random", "greedy-1", "greedy-2"):
+        assert f"alphazero vs {name}: " in out and "'games': 8" in out
+    logdir = tmp_path / "log" / "gobblet_rl_torch" / "alphazero"
+    assert len((logdir / "history.jsonl").read_text().splitlines()) == 2
+    _, again = example_alphazero.main(az_args(
+        tmp_path, "--search", search, "--iterations", "2", "--eval-games", "0",
+        "--full-resume-dir", str(tmp_path / "resume")))
+    assert again == [] and "resumed at end" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,item", [(["--watch"], "A.17"),
+                                        (["--eval-alphabeta-depth", "1"], "A.14")])
+def test_alphazero_cli_unported_modes_raise(flags, item):
+    args = example_alphazero.get_parser().parse_args(flags)
+    assert args.device == "cuda" and args.search == "puct"
+    with pytest.raises(NotImplementedError, match=item):
+        example_alphazero.main(args)

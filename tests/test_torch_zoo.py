@@ -1,7 +1,8 @@
 """The torch zoo loader: its msgpack reader against flax's, leaf for leaf,
-on every committed blob; ``dqn_greedy``'s Q-values against the JAX zoo's
-(bf16 tolerance: 2e-2 of max |Q|, as in test_torch_dqn.py); its policy;
-the families that are not ported; ``GOBBLET_ZOO_DIR``."""
+on every committed blob; ``dqn_greedy``'s Q-values and
+``alphazero_gumbel32``'s logits and values against the JAX zoo's (bf16
+tolerance: 2e-2 of max |output|, as in test_torch_dqn.py); their
+policies; the family that is not ported; ``GOBBLET_ZOO_DIR``."""
 
 import json
 import pathlib
@@ -107,7 +108,40 @@ def test_policy_plays_legal_moves():
     assert m["win_rate"] > 0.8, m
 
 
-@pytest.mark.parametrize("name,needs", [("alphazero_gumbel32", "A.11"), ("ppo_league", "A.12")])
+def test_alphazero_gumbel32_matches_jax():
+    board, cur = fixed_positions()
+    obs = tbc.features_lm(board, cur).t()
+    net, _, entry = tzoo.load("alphazero_gumbel32", expect_family="alphazero", device=CPU)
+    assert entry["eval"] == {"num_sims": 128} and net.dtype == torch.bfloat16
+    with torch.no_grad():
+        got = [x.numpy() for x in net(obs)]
+    jnet, jparams, _ = jzoo.load("alphazero_gumbel32")
+    want = [np.asarray(x) for x in jnet.apply(jparams, jnp.asarray(obs.numpy()))]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=2e-2 * np.abs(w).max(), rtol=0)
+    tol = 2e-2 * np.abs(want[0]).max()
+    mask = tbc.legal_mask_planes(board, cur).t().numpy()
+    masked = np.where(mask, want[0], -np.inf)
+    top2 = np.sort(masked, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * tol
+    assert clear.sum() > 128
+    np.testing.assert_array_equal(np.where(mask, got[0], -np.inf).argmax(1)[clear],
+                                  masked.argmax(1)[clear])
+    with pytest.raises(ValueError, match="expects 'dqn'"):
+        tzoo.load("alphazero_gumbel32", expect_family="dqn", device=CPU)
+
+
+def test_alphazero_policy_plays_legal_moves():
+    pol = tzoo.policy("alphazero_gumbel32", device=CPU, num_sims=16)
+    state = tbc.reset_planes(32, CPU)
+    for _ in range(6):
+        mask = tbc.legal_mask_planes(state.board, state.current)
+        a = pol(None, state.board, state.current)
+        assert a.dtype == torch.int32 and mask[a.long(), torch.arange(32)].all()
+        state = tbc.autoreset_planes(tbc.step_planes(state, a))
+
+
+@pytest.mark.parametrize("name,needs", [("ppo_league", "A.12")])
 def test_other_families_raise(name, needs):
     with pytest.raises(NotImplementedError, match=needs):
         tzoo.load(name, device=CPU)
