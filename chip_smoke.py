@@ -50,18 +50,40 @@ its plain PyTorch version:
     2 timed iterations split by CUDA events into self-play segment,
     outcomes + flatten and updates; loss finite, policy targets on the legal
     actions summing to 1, decisive winners, params changed, no rollout
-    kernel launched; then ``alphazero.train`` at 256 envs for 2 iterations
-    with ``full_resume_dir``, relaunched for a third, once with the Gumbel
-    search and once with PUCT (``AZConfig``'s default: root Dirichlet noise,
-    visit sampling for the first 8 plies): the restored payload equals the
-    saved one, tensor for tensor, and every segment's targets pass the
-    checks above;
+    kernel launched; then ``alphazero.train`` at 256 envs and segment 16
+    for 2 iterations with ``full_resume_dir``, relaunched for a third, once
+    with the Gumbel search and once with PUCT (``AZConfig``'s default: root
+    Dirichlet noise, visit sampling for the first 8 plies): the restored
+    payload equals the saved one, tensor for tensor, and every segment's
+    targets pass the checks above;
 14. the zoo agent ``alphazero_gumbel32`` on the card: logits and values on
-    4,096 positions against the CPU's, then 512 games against the depth-2
-    greedy with colours swapped at the manifest's 128 simulations (win rate
-    at least 0.85).
+    4,096 positions against the CPU's, then 256 games of at most 50 plies
+    against the depth-2 greedy with colours swapped at the manifest's 128
+    simulations (win rate at least 0.85);
+15. the PPO iteration of ``bench.py`` at full width (8,192 envs, segment
+    32, one shared MLP 128x128, both seats, the "self" opponent, 4 epochs
+    of 8 minibatches): 1 warm-up and 3 timed iterations split by CUDA
+    events into rollout, GAE + flatten and updates; loss finite, episodes,
+    params changed, every recorded action legal, every env at its learner
+    seat's turn, no rollout kernel launched; one more iteration under
+    torch.profiler (device kernel time, idle share);
+16. the ``ppo_league`` recipe at its width (512 envs, the 4-leg league,
+    the "search" attacker at 4 simulations, the defense term over a
+    384-game bank of both sides): the bank built on the host (seconds,
+    rows), one iteration of each leg (random, greedy, pool, search), then
+    ``example_ppo.main`` with the recipe's flags for 2 iterations with
+    ``--checkpoint-dir``, relaunched for a third (exactly one more
+    iteration; the restored payload equal to the saved one), and one
+    phase-5 DQN iteration with the defense term (loss finite);
+17. the zoo agent ``ppo_league`` on the card: logits and values on 4,096
+    positions against the CPU's, 2,048 games against the depth-2 greedy with
+    colours swapped (win rate at least 0.80), and ``defense_audit`` (32
+    games, the exact solver at depth 18 attacking): at least 11.0 plies
+    survived; the solver's host seconds apart from the rest; then the same
+    audit against oracles of fixed salts 0-3, each from a cleared solver
+    table (salt and table pick the attack line among equally fast wins).
 
-Phases 7-14 each print one JSON line with the card's name and power limit
+Phases 7-17 each print one JSON line with the card's name and power limit
 and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
@@ -97,7 +119,26 @@ CLI_ARGS = ["--opponent", "mixed", "--both-seats", "--training-num", "16384",
 AZ = dict(search="gumbel_lm", num_sims=32, num_envs=2048, segment_len=48, model="conv",
           channels=64, blocks=2, batch_size=2048, updates_per_iter=8)
 SEARCH_PARITY_B, SEARCH_MIN_SAME = 1024, 0.99
-AZ_RESUME_ENVS, AZ_ZOO_GAMES, AZ_ZOO_MIN_WIN_RATE = 256, 512, 0.85
+# the resume checks and the zoo match are cut to keep the script well
+# inside its time on a slow host: segment 16, and 256 games of at most 50
+# plies (the launch-bound match runs until its last game ends; a game still
+# open at the cap counts as undecided, outside the win rate)
+AZ_RESUME_ENVS, AZ_RESUME_SEGMENT, AZ_ZOO_GAMES, AZ_ZOO_MAX_PLIES = 256, 16, 256, 50
+AZ_ZOO_MIN_WIN_RATE = 0.85
+# The PPO iteration of bench.py (bench.py:276-322), not cut.
+PPO = dict(num_envs=8192, segment_len=32, shared_policy=True, learner_player="both",
+           opponent="self", hidden_sizes=(128, 128), epochs_per_iter=4, minibatches=8)
+# The recipe of the zoo's ppo_league (gobblet_rl_tpu/zoo/manifest.json), at
+# its width; the bank's depth is PPOConfig's default, 16.
+LEAGUE = dict(shared_policy=True, learner_player="both", opponent="mixed",
+              mixed_weights=(0.1, 0.6, 0.2, 0.1), search_sims=4, defense_bc_weight=1.0,
+              defense_bank_games=384, defense_bank_sides="both", num_envs=512, seed=1626)
+LEAGUE_ARGS = ["--shared-policy", "--learner-player", "both", "--opponent", "mixed",
+               "--mixed-weights", "0.1", "0.6", "0.2", "0.1", "--search-sims", "4",
+               "--defense-bc-weight", "1.0", "--defense-bank-games", "384",
+               "--defense-bank-sides", "both", "--num-envs", "512", "--seed", "1626"]
+PPO_ZOO_MIN_WIN_RATE, AUDIT_GAMES, AUDIT_DEPTH, AUDIT_MIN_PLIES = 0.80, 32, 18, 11.0
+AUDIT_SALTS = range(4)
 
 # The bound.  Bytes: HBM at 3.35e12 B/s (NVIDIA's H100 SXM data sheet).
 # Operations: the machine instructions of the kernel's ply loop, read from
@@ -504,17 +545,30 @@ def phase_search(smi: str, gen: torch.Generator) -> None:
     peak = torch.cuda.max_memory_allocated() / 2**30
     host_ms = statistics.median(timings)
 
-    # the card's share of one call: kernel time by torch.profiler (CUPTI),
-    # against the unprofiled call time above
+    # the card's share of one call, against the unprofiled call time above
+    profile_line = device_profile(
+        lambda: gumbel_lm.gumbel_search_lm(net, state.board, state.current, gen, cfg), host_ms)
+    log(json.dumps({"metric": "gumbel_search_ms", "device": smi, "batch": B,
+                    "num_sims": cfg.num_sims, "net": f"conv {AZ['channels']}x{AZ['blocks']} bf16",
+                    "ms": timings, "ms_per_sim": host_ms / cfg.num_sims,
+                    "peak_mem_gib": peak, "profile": profile_line,
+                    "cpu_parity_positions": n, "cpu_parity_same_share": share,
+                    "cpu_parity_differing_roots": int((~same).sum()), "cpu_search_s": cpu_s,
+                    "seconds": time.perf_counter() - t0}))
+
+
+def device_profile(fn, host_ms: float) -> dict:
+    """One call of ``fn`` under torch.profiler (CUPTI): its kernels' device
+    time and count, against ``host_ms``, the same call's time unprofiled."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gumbel_lm.gumbel_search_lm(net, state.board, state.current, gen, cfg)
+        fn()
         torch.cuda.synchronize()
     rows = prof.key_averages()
     kernels = [e for e in rows if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    profile_line = {
+    return {
         "device_kernel_ms": busy_ms if busy_ms > 0 else "not measured",
         "device_kernels": sum(e.count for e in kernels),
         "self_device_ms_all_rows": sum(e.self_device_time_total for e in rows) / 1e3,
@@ -523,13 +577,6 @@ def phase_search(smi: str, gen: torch.Generator) -> None:
         "top_kernels_ms": {e.key[:80]: e.device_time_total / 1e3
                            for e in sorted(kernels, key=lambda e: -e.device_time_total)[:6]},
     }
-    log(json.dumps({"metric": "gumbel_search_ms", "device": smi, "batch": B,
-                    "num_sims": cfg.num_sims, "net": f"conv {AZ['channels']}x{AZ['blocks']} bf16",
-                    "ms": timings, "ms_per_sim": host_ms / cfg.num_sims,
-                    "peak_mem_gib": peak, "profile": profile_line,
-                    "cpu_parity_positions": n, "cpu_parity_same_share": share,
-                    "cpu_parity_differing_roots": int((~same).sum()), "cpu_search_s": cpu_s,
-                    "seconds": time.perf_counter() - t0}))
 
 
 def check_segment(traj: dict, what: str) -> None:
@@ -618,7 +665,7 @@ def phase_alphazero(smi: str, gen: torch.Generator) -> None:
             segments.append(traj)
             return real_flatten(traj, z, valid)
 
-        small = dict(AZ, num_envs=AZ_RESUME_ENVS, search=search)
+        small = dict(AZ, num_envs=AZ_RESUME_ENVS, segment_len=AZ_RESUME_SEGMENT, search=search)
         ckpt.save_payload, ckpt.restore_payload = recording_save, recording_restore
         alphazero.flatten_segment = recording_flatten
         try:
@@ -643,7 +690,8 @@ def phase_alphazero(smi: str, gen: torch.Generator) -> None:
         check(len(segments) == 3, f"{what}: three segments")
         for traj in segments:
             check_segment(traj, what)
-        resumes[search] = {"num_envs": AZ_RESUME_ENVS, "first_launch_s": s1, "relaunch_s": s2,
+        resumes[search] = {"num_envs": AZ_RESUME_ENVS, "segment_len": AZ_RESUME_SEGMENT,
+                           "first_launch_s": s1, "relaunch_s": s2,
                            "restored_tensors_equal": tree_equal(restored[1], saved[1]),
                            "records": hist1 + hist2}
     log(json.dumps({"metric": "az_train_iteration", "device": smi, **AZ,
@@ -674,19 +722,281 @@ def phase_az_zoo(smi: str, gen: torch.Generator) -> None:
             check(errs[name][0] <= tol, f"az zoo: {name} on the card within {tol:.4g} of the CPU's")
     w0 = time.perf_counter()
     match = tournament.play_match(zoo.policy("alphazero_gumbel32", device=dev),
-                                  tournament.greedy_policy(2), num_games=AZ_ZOO_GAMES, seed=0,
-                                  device=dev)
+                                  tournament.greedy_policy(2), num_games=AZ_ZOO_GAMES,
+                                  max_plies=AZ_ZOO_MAX_PLIES, seed=0, device=dev)
     match_s = time.perf_counter() - w0
     check(match["win_rate"] >= AZ_ZOO_MIN_WIN_RATE,
           f"az zoo: alphazero_gumbel32 vs greedy-2 win rate {match['win_rate']:.3f} >= "
           f"{AZ_ZOO_MIN_WIN_RATE}")
     log(json.dumps({"metric": "zoo_alphazero_gumbel32_vs_greedy2", "device": smi, **match,
-                    "num_sims": entry["eval"]["num_sims"],
+                    "num_sims": entry["eval"]["num_sims"], "max_plies": AZ_ZOO_MAX_PLIES,
                     "manifest_vs_greedy_2": entry["metrics"]["vs_greedy-2"],
                     "positions": GREEDY_PARITY_B,
                     "max_abs_err": {k: v[0] for k, v in errs.items()},
                     "tolerance": {k: v[1] for k, v in errs.items()},
                     "match_s": match_s, "seconds": time.perf_counter() - t0}))
+
+
+def phase_ppo(smi: str, gen: torch.Generator) -> None:
+    """15. the PPO iteration at full width, split by phase."""
+    from gobblet_rl_torch.kernels import rollout as R
+    from gobblet_rl_torch.train import ppo
+
+    t0 = time.perf_counter()
+    config = ppo.PPOConfig(**PPO)
+    R.rollout_random_fused.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    st = ppo.init_ppo(config, gen)
+    it = ppo.make_train_iteration(config, "self", device=gen.device)
+    net, opt = st.nets[0], st.optimizers[0]
+    st.env_states[0], _ = it(net, net, opt, st.env_states[0], gen, "both")   # warm-up
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    trajs, real_gae = [], ppo.compute_gae
+
+    def recording_gae(traj, last_value, gamma, lam):
+        trajs.append(traj)
+        return real_gae(traj, last_value, gamma, lam)
+
+    runs = []
+    ppo.compute_gae = recording_gae
+    try:
+        for _ in range(3):
+            marks = []
+            mark = cuda_mark(marks)
+            w0 = time.perf_counter()
+            mark("start")
+            st.env_states[0], stats = it(net, net, opt, st.env_states[0], gen, "both", mark=mark)
+            loss = float(stats["loss"])  # synchronises
+            wall_s = time.perf_counter() - w0
+            check(math.isfinite(loss), "ppo: loss finite")
+            check(int(stats["episodes"]) > 0, "ppo: episodes finished")
+            phases = {name: prev.elapsed_time(event)
+                      for (_, prev), (name, event) in zip(marks, marks[1:])}
+            runs.append({"iteration_ms": 1e3 * wall_s, **{f"{k}_ms": v for k, v in phases.items()},
+                         "loss": loss, "episodes": int(stats["episodes"]),
+                         "mean_reward": float(stats["mean_reward"])})
+    finally:
+        ppo.compute_gae = real_gae
+
+    def one_iteration():
+        st.env_states[0], _ = it(net, net, opt, st.env_states[0], gen, "both")
+
+    profile_line = device_profile(one_iteration,
+                                  statistics.median(r["iteration_ms"] for r in runs))
+    launches = R.rollout_random_fused.launches
+    check(launches == 0, "ppo: the path launches no rollout kernel")
+    for traj in trajs:
+        picked = traj["mask"].gather(-1, traj["action"].long()[..., None])
+        check(bool(picked.all()), "ppo: every recorded action legal")
+    seats = ppo.seat_array("both", config.num_envs, gen.device)
+    check(bool((st.env_states[0].current == seats).all()), "ppo: every env at its learner's turn")
+    check(any(not torch.equal(before[k], v) for k, v in net.state_dict().items()),
+          "ppo: the params changed")
+    steps = config.num_envs * config.segment_len
+    log(json.dumps({"metric": "ppo_train_iteration", "device": smi, **PPO,
+                    "ppo_train_env_steps_per_sec": [steps / (r["iteration_ms"] / 1e3)
+                                                    for r in runs],
+                    "runs": runs, "profile": profile_line,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "rollout_kernel_launches": launches, "seconds": time.perf_counter() - t0}))
+
+
+def phase_ppo_league(smi: str, gen: torch.Generator) -> None:
+    """16. the ppo_league recipe at its width: the bank, each leg, the CLI
+    relaunched, and the DQN iteration with the defense term."""
+    from gobblet_rl_torch.examples import example_ppo
+    from gobblet_rl_torch.train import checkpoint as ckpt
+    from gobblet_rl_torch.train import defense, dqn, ppo, replay
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    config = ppo.PPOConfig(**LEAGUE)
+    w0 = time.perf_counter()
+    raw = defense.generate_defense_bank(num_games=config.defense_bank_games, seed=config.seed,
+                                        depth=config.defense_bank_depth,
+                                        sides=config.defense_bank_sides, device=dev)
+    bank_s = time.perf_counter() - w0
+    rows = len(raw["action"])
+    check(bool(raw["mask"][range(rows), raw["action"]].all()), "league: every label legal")
+    bank = defense.bank_tensors(raw, dev)
+
+    # one iteration of each leg; "pool" is the "self" rollout against a
+    # frozen snapshot
+    st = ppo.init_ppo(config, gen)
+    net, opt = st.nets[0], st.optimizers[0]
+    snapshot = ppo.make_net(config, dev)
+    snapshot.load_state_dict(ppo.snapshot(net))
+    legs = {}
+    for leg, kind, opp in (("random", "random", net), ("greedy", "greedy", net),
+                           ("pool", "self", snapshot), ("search", "search", net)):
+        it = ppo.make_train_iteration(config, kind, bank, dev)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        st.env_states[0], stats = it(net, opp, opt, st.env_states[0], gen, "both")
+        loss = float(stats["loss"])  # synchronises
+        legs[leg] = {"iteration_s": time.perf_counter() - w0, "loss": loss,
+                     "episodes": int(stats["episodes"])}
+        check(math.isfinite(loss), f"league: {leg} leg loss finite")
+    del st, snapshot
+
+    # the command line, relaunched from its resume point
+    with tempfile.TemporaryDirectory() as tmp:
+        resume = os.path.join(tmp, "resume")
+        saved, restored = {}, {}
+        real_save, real_restore = ckpt.save_payload, ckpt.restore_payload
+
+        def recording_save(directory, payload, step, meta=None):
+            saved[step] = clone_tree(payload)
+            real_save(directory, payload, step, meta)
+
+        def recording_restore(directory, step=None):
+            payload, step = real_restore(directory, step)
+            if payload is not None:
+                restored[step] = clone_tree(payload)
+            return payload, step
+
+        def run(iterations: int):
+            args = example_ppo.get_parser().parse_args(
+                LEAGUE_ARGS + ["--iterations", str(iterations), "--checkpoint-dir", resume,
+                               "--logdir", os.path.join(tmp, "log")])
+            w0 = time.perf_counter()
+            _, history = example_ppo.main(args)
+            return history, time.perf_counter() - w0
+
+        ckpt.save_payload, ckpt.restore_payload = recording_save, recording_restore
+        try:
+            hist1, s1 = run(2)
+            hist2, s2 = run(3)
+        finally:
+            ckpt.save_payload, ckpt.restore_payload = real_save, real_restore
+        check([h["iteration"] for h in hist1] == [0, 1], "league cli: iterations 0 and 1")
+        check([h["iteration"] for h in hist2] == [2], "league cli: the relaunch runs iteration 2")
+        check(all(math.isfinite(h["loss"]) for h in hist1 + hist2), "league cli: loss finite")
+        check(list(restored) == [1] and 1 in saved, "league cli: step 1 saved and restored")
+        tensors = tree_equal(restored[1], saved[1])
+        history = os.path.join(tmp, "log", "gobblet_rl_torch", "ppo", "history.jsonl")
+        with open(history) as f:
+            check(len(f.read().splitlines()) == 3, "league cli: history.jsonl has 3 iterations")
+
+    # phase 5's DQN iteration with the defense term (DQNConfig's bank)
+    dconfig = dqn.DQNConfig(**DQN, defense_bc_weight=1.0)
+    w0 = time.perf_counter()
+    dbank = defense.bank_tensors(defense.generate_defense_bank(
+        num_games=dconfig.defense_bank_games, seed=dconfig.seed,
+        depth=dconfig.defense_bank_depth, device=dev), dev)
+    dqn_bank_s = time.perf_counter() - w0
+    ts = dqn.init_train_state(dconfig, dqn.make_net(dconfig, dev), gen)
+    it, opp_fn = dqn.make_train_iteration(dconfig, dbank)
+    env_state = dqn.init_env_state(dconfig, opp_fn, ts.opponent_net, gen)
+    buffer = replay.make_buffer(dconfig.buffer_size, dev)
+    w0 = time.perf_counter()
+    env_state, buffer, loss = it(ts, env_state, buffer, gen)
+    dqn_loss = float(loss)  # synchronises
+    dqn_s = time.perf_counter() - w0
+    check(math.isfinite(dqn_loss), "dqn with the defense term: loss finite")
+    del ts, env_state, buffer
+    log(json.dumps({"metric": "ppo_league_recipe", "device": smi, **LEAGUE,
+                    "bank_host_s": bank_s, "bank_rows": rows, "legs": legs,
+                    "cli_first_launch_s": s1, "cli_relaunch_s": s2,
+                    "restored_tensors_equal": tensors, "records": hist1 + hist2,
+                    "dqn_bank_host_s": dqn_bank_s, "dqn_bank_rows": int(dbank["action"].numel()),
+                    "dqn_defense_iteration_s": dqn_s, "dqn_defense_loss": dqn_loss,
+                    "seconds": time.perf_counter() - t0}))
+
+
+def phase_ppo_zoo(smi: str, gen: torch.Generator) -> None:
+    """17. the committed ppo_league agent on the card, and its defense
+    against the exact solver."""
+    from gobblet_rl_torch import zoo
+    from gobblet_rl_torch.eval import tournament
+    from gobblet_rl_torch.native import engine
+    from gobblet_rl_torch.ops import batched_core as bc
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    net, _, entry = zoo.load("ppo_league", expect_family="ppo", device=dev)
+    cpu_net, _, _ = zoo.load("ppo_league", device="cpu")
+    state, _ = bc.rollout_random(bc.reset_planes(GREEDY_PARITY_B, dev), gen, 10)
+    obs = bc.features_lm(state.board, state.current).t()
+    errs = {}
+    with torch.no_grad():
+        for name, card, cpu in zip(("logits", "value"), net(obs), cpu_net(obs.cpu())):
+            tol = 2e-2 * float(cpu.abs().max())
+            errs[name] = (float((card.cpu() - cpu).abs().max()), tol)
+            check(errs[name][0] <= tol,
+                  f"ppo zoo: {name} on the card within {tol:.4g} of the CPU's")
+    w0 = time.perf_counter()
+    match = tournament.play_match(zoo.policy("ppo_league", device=dev),
+                                  tournament.greedy_policy(2), num_games=ZOO_GAMES, seed=0,
+                                  device=dev)
+    match_s = time.perf_counter() - w0
+    check(match["win_rate"] >= PPO_ZOO_MIN_WIN_RATE,
+          f"ppo zoo: ppo_league vs greedy-2 win rate {match['win_rate']:.3f} >= "
+          f"{PPO_ZOO_MIN_WIN_RATE}")
+
+    # the audit with the solver's host calls timed apart
+    solver = {"calls": 0, "s": 0.0}
+
+    def timed_solver(fn):
+        def wrapped(*args):
+            w = time.perf_counter()
+            out = fn(*args)
+            solver["calls"] += 1
+            solver["s"] += time.perf_counter() - w
+            return out
+        return wrapped
+
+    def solve_fn(board27, player):
+        res = engine.solve(board27, player=player, max_depth=AUDIT_DEPTH)
+        return res["proven"], res["mate_in"]
+
+    real_batch = engine.solve_batch
+    engine.solve_batch = timed_solver(real_batch)
+    try:
+        w0 = time.perf_counter()
+        audit = tournament.defense_audit(zoo.policy("ppo_league", device=dev),
+                                         num_games=AUDIT_GAMES, depth=AUDIT_DEPTH,
+                                         solve_fn=timed_solver(solve_fn), device=dev)
+        audit_s = time.perf_counter() - w0
+    finally:
+        engine.solve_batch = real_batch
+    check(audit["ungraded_games"] == 0, "ppo zoo: every audited move graded")
+    check(audit["mean_plies_survived"] >= AUDIT_MIN_PLIES,
+          f"ppo zoo: {audit['mean_plies_survived']:.2f} plies survived >= {AUDIT_MIN_PLIES}")
+
+    # the oracle picks among equally fast wins by its salt and by what its
+    # transposition table holds, and so the lines the defense is tested on:
+    # the same audit against oracles of fixed salts, each from a cleared
+    # table (then the answers equal the JAX package's for the same salt)
+    def fixed_salt_oracle(salt):
+        def fn(_, board, current):
+            boards = board.permute(2, 0, 1).reshape(-1, 27).cpu().numpy()
+            actions = engine.solve_batch(boards, current.cpu().numpy().astype("int32"),
+                                         AUDIT_DEPTH, salt)
+            return torch.from_numpy(actions).to(board.device)
+        return fn
+
+    by_salt = {}
+    for salt in AUDIT_SALTS:
+        engine.solve_tt_clear()
+        res = tournament.defense_audit(zoo.policy("ppo_league", device=dev),
+                                       num_games=AUDIT_GAMES, depth=AUDIT_DEPTH,
+                                       oracle_policy=fixed_salt_oracle(salt), device=dev)
+        by_salt[salt] = [res["mean_plies_survived"], res["mistakes_per_game"]]
+    log(json.dumps({"metric": "zoo_ppo_league", "device": smi, **match,
+                    "manifest_vs_greedy_2": entry["metrics"]["vs_greedy-2"],
+                    "positions": GREEDY_PARITY_B,
+                    "max_abs_err": {k: v[0] for k, v in errs.items()},
+                    "tolerance": {k: v[1] for k, v in errs.items()}, "match_s": match_s,
+                    "audit": audit, "audit_depth": AUDIT_DEPTH,
+                    "manifest_plies_survived": entry["metrics"]["defense_plies_survived"],
+                    "audit_s": audit_s, "audit_solver_host_s": solver["s"],
+                    "audit_solver_calls": solver["calls"],
+                    "audit_rest_s": audit_s - solver["s"],
+                    "plies_and_mistakes_by_oracle_salt": by_salt,
+                    "solver_library": engine.build().name,
+                    "seconds": time.perf_counter() - t0}))
 
 
 def main() -> int:
@@ -878,6 +1188,11 @@ def main() -> int:
     phase_search(smi, gen)
     phase_alphazero(smi, gen)
     phase_az_zoo(smi, gen)
+
+    # 15-17. the PPO family, the defense bank and the audit; no kernel ------
+    phase_ppo(smi, gen)
+    phase_ppo_league(smi, gen)
+    phase_ppo_zoo(smi, gen)
 
     log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "

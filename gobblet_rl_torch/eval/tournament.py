@@ -1,18 +1,23 @@
 """Batched matches between policies over the lane-major engine.
 
-Port of part of ``gobblet_rl_tpu/eval/tournament.py``: the random, greedy
-and DQN policies and :func:`play_match`.  A policy is a function
-``(generator, board int8[3, 9, B], current int32[B]) -> int32[B]``.
+Port of ``gobblet_rl_tpu/eval/tournament.py`` but ``round_robin``: the
+random, greedy, DQN and PPO policies, the native alpha-beta expert and
+exact solver as policies, :func:`play_match` and :func:`defense_audit`.  A
+policy is a function ``(generator, board int8[3, 9, B], current int32[B])
+-> int32[B]``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from gobblet_rl_torch.device import resolve_device
+from gobblet_rl_torch.models import actor_critic as ac
 from gobblet_rl_torch.models.mlp import masked_argmax
+from gobblet_rl_torch.native import engine
 from gobblet_rl_torch.ops import batched_core as bc
 from gobblet_rl_torch.policies import greedy_jax
 
@@ -48,6 +53,54 @@ def dqn_policy(net, eps: float = 0.0) -> PolicyFn:
         return torch.where(explore, rand, greedy)
 
     return fn
+
+
+def ppo_policy(net, sample: bool = False) -> PolicyFn:
+    """Masked actor policy of an actor-critic net: the masked argmax, or a
+    draw from the masked softmax with ``sample``."""
+
+    @torch.no_grad()
+    def fn(generator, board, current):
+        mask = bc.legal_mask_planes(board, current).t()
+        logits, _ = net(bc.features_lm(board, current).t())
+        if sample:
+            return ac.sample_masked(generator, logits, mask)[0]
+        return ac.masked_logits(logits, mask).argmax(dim=-1).to(torch.int32)
+
+    return fn
+
+
+def _native_batch_policy(batch_fn) -> PolicyFn:
+    """Lift a native batch searcher ``(boards int8[n, 27], players int32[n],
+    salt) -> int32[n]`` into a policy: the positions cross to the host once
+    a ply and the actions come back to the board's device.  The salt is
+    drawn from the policy's generator."""
+
+    def fn(generator, board, current):
+        salt = int(torch.randint(0, np.iinfo(np.int32).max, (), generator=generator,
+                                 device=generator.device))
+        boards = board.permute(2, 0, 1).reshape(-1, 27).cpu().numpy()
+        actions = batch_fn(boards, current.cpu().numpy().astype(np.int32), salt)
+        return torch.from_numpy(actions).to(board.device)
+
+    return fn
+
+
+def alphabeta_policy(depth: int = 6) -> PolicyFn:
+    """The native alpha-beta expert (``csrc/gobblet.cpp``) as a policy."""
+    engine.load()
+    return _native_batch_policy(
+        lambda boards, players, salt: engine.alphabeta_batch(boards, players, depth, salt))
+
+
+def solver_policy(depth: int = 15) -> PolicyFn:
+    """Perfect play from the native exact solver: at ``depth`` >= 13 it
+    converts every won position it is handed (the opening is a proven
+    first-player win in 13 plies); the salt varies only the choice among
+    equally fast proven wins."""
+    engine.load()
+    return _native_batch_policy(
+        lambda boards, players, salt: engine.solve_batch(boards, players, depth, salt))
 
 
 def play_match(policy_a: PolicyFn, policy_b: PolicyFn, num_games: int = 512,
@@ -91,4 +144,99 @@ def play_match(policy_a: PolicyFn, policy_b: PolicyFn, num_games: int = 512,
         "losses": losses,
         "undecided": undecided,
         "win_rate": wins / max(wins + losses, 1),
+    }
+
+
+def defense_audit(policy: PolicyFn, num_games: int = 32, seed: int = 0, depth: int = 18,
+                  max_plies: int = 60, solve_fn=None, oracle_policy=None,
+                  device=None) -> Dict[str, float]:
+    """Defense quality against the perfect oracle: ``policy`` plays second
+    against the exact solver's fastest attack, and every defensive move is
+    graded with the solver's mate distances.  From a position lost in ``d``
+    plies, optimal defense reaches one lost in exactly ``d - 1``; a move
+    landing at ``d' < d - 1`` shortened its own mate and is a mistake.
+
+    Returns, over ``num_games`` games: ``mean_plies_survived`` (the oracle
+    attacks fastest, so game length is the defense metric), its min and
+    max, ``mean_first_mistake_ply`` (1-based, over games with a mistake),
+    ``clean_game_frac`` (graded games without a mistake),
+    ``ungraded_games``, ``mistakes_per_game`` and ``unproven_positions``.
+
+    ``solve_fn(board27, player) -> (proven, mate_in)`` and
+    ``oracle_policy`` are injectable; the defaults are the native exact
+    solver at ``depth`` and :func:`solver_policy`.  Both policies draw
+    from one generator on ``device`` seeded with ``seed``."""
+    if solve_fn is None:
+        engine.load()
+
+        def solve_fn(board27, player):
+            res = engine.solve(board27, player=player, max_depth=depth)
+            return res["proven"], res["mate_in"]
+
+    oracle = oracle_policy if oracle_policy is not None else solver_policy(depth=depth)
+    dev = resolve_device(device)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
+    state = bc.reset_planes(num_games, dev)
+    first_mistake = np.full(num_games, -1, np.int32)
+    mistakes = np.zeros(num_games, np.int32)
+    unproven = 0
+    ungraded = np.zeros(num_games, bool)  # the game holds an unproven position
+
+    def boards27(state):
+        return state.board.permute(2, 0, 1).reshape(num_games, 27).cpu().numpy()
+
+    for ply in range(max_plies):
+        done_before = state.done.cpu().numpy()
+        if done_before.all():
+            break
+        mover = int(state.current.cpu().numpy()[~done_before][0])
+        if mover == 0:
+            state = bc.step_planes(state, oracle(generator, state.board, state.current))
+            continue
+        before = boards27(state)
+        d_before = np.full(num_games, -1, np.int32)
+        for g in np.flatnonzero(~done_before):
+            proven, mate = solve_fn(before[g], 1)
+            if proven and mate is not None:
+                d_before[g] = mate
+            else:  # the depth is too shallow to prove it
+                unproven += 1
+                ungraded[g] = True
+        state = bc.step_planes(state, policy(generator, state.board, state.current))
+        done_now = state.done.cpu().numpy()
+        after = boards27(state)
+        for g in np.flatnonzero(~done_before):
+            if d_before[g] < 0:
+                continue
+            if done_now[g]:
+                d_after = 0  # the move lost on the spot
+            else:
+                proven, mate = solve_fn(after[g], 0)
+                if not proven or mate is None:
+                    unproven += 1
+                    ungraded[g] = True
+                    continue
+                d_after = mate
+            if d_after < d_before[g] - 1:
+                mistakes[g] += 1
+                if first_mistake[g] < 0:
+                    first_mistake[g] = ply + 1
+
+    # turn counts legal plies and freezes at game end: each game's length
+    lengths = state.turn.cpu().numpy()
+    with_mistake = first_mistake[first_mistake > 0]
+    # a game is clean only if every defensive move in it was graded
+    graded = ~ungraded
+    clean = (first_mistake < 0) & graded
+    return {
+        "games": num_games,
+        "mean_plies_survived": float(lengths.mean()),
+        "min_plies_survived": int(lengths.min()),
+        "max_plies_survived": int(lengths.max()),
+        "mean_first_mistake_ply": float(with_mistake.mean()) if with_mistake.size else None,
+        "clean_game_frac": float(clean.sum() / max(int(graded.sum()), 1)),
+        "ungraded_games": int(ungraded.sum()),
+        "mistakes_per_game": float(mistakes.mean()),
+        "unproven_positions": unproven,
     }

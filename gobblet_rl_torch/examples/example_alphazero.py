@@ -8,11 +8,12 @@ with the same flags; ``--device`` defaults to ``cuda``.  History goes to
 ``--checkpoint-dir`` saves and resumes the net, optimizer and env batch,
 ``--full-resume-dir`` also the generator, so a preempted run relaunched
 with the same flags continues bit for bit.  After training, the search
-agent plays ``--eval-games`` games against random, greedy-1 and greedy-2.
+agent plays ``--eval-games`` games against random, greedy-1 and greedy-2,
+and with ``--eval-alphabeta-depth > 0`` against the native alpha-beta
+expert at that depth.
 
 Not ported yet: ``--watch`` (one rendered game on the host surface,
-ROADMAP A.17) and ``--eval-alphabeta-depth > 0`` (the native alpha-beta
-expert, ROADMAP A.14); both raise.
+ROADMAP A.17); it raises.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ def get_parser() -> argparse.ArgumentParser:
                         choices=["greedy", "random", "alphabeta"])
     parser.add_argument("--eval-alphabeta-depth", type=int, default=0,
                         help="if > 0, also evaluate vs the native alpha-beta expert at this "
-                        "depth (not ported yet)")
+                        "depth")
     parser.add_argument("--agent-id", type=int, default=1, choices=[1, 2],
                         help="which seat the search agent takes in --watch")
     parser.add_argument("--zoo", type=str, default="",
@@ -70,10 +71,6 @@ def main(args=None):
         raise NotImplementedError(
             "--watch plays on the host surface (the AEC env, rendering, the host search "
             "agent: ROADMAP A.17), not ported yet")
-    if args.eval_alphabeta_depth > 0:
-        raise NotImplementedError(
-            "--eval-alphabeta-depth needs the native alpha-beta policy (ROADMAP A.14), "
-            "not ported yet")
     from gobblet_rl_torch.eval import tournament
     from gobblet_rl_torch.train import alphazero
     from gobblet_rl_torch.train.logging import make_logger
@@ -105,6 +102,9 @@ def main(args=None):
             ("greedy-1", tournament.greedy_policy(1)),
             ("greedy-2", tournament.greedy_policy(2)),
         ]
+        if args.eval_alphabeta_depth > 0:
+            opponents.append((f"alphabeta-{args.eval_alphabeta_depth}",
+                              tournament.alphabeta_policy(args.eval_alphabeta_depth)))
         for name, opp in opponents:
             res = tournament.play_match(pol, opp, num_games=args.eval_games, seed=args.seed,
                                         device=args.device)

@@ -115,12 +115,16 @@ def masked_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask.to(torch.bool), logits, -1e9)
 
 
-def sample_masked(generator: torch.Generator, logits: torch.Tensor, mask: torch.Tensor):
+def sample_masked(generator: torch.Generator | None, logits: torch.Tensor, mask: torch.Tensor,
+                  gumbel: torch.Tensor | None = None):
     """(int32 actions, their log-probabilities): one categorical draw per
     row over the legal actions (Gumbel argmax, the form of
-    ``jax.random.categorical``)."""
+    ``jax.random.categorical``).  ``gumbel`` is an optional float32 field
+    of ``logits``' shape; without it the noise comes from ``generator``."""
     ml = masked_logits(logits, mask)
-    action = (ml + bc.gumbel_field(generator, ml.shape, ml.device)).argmax(dim=-1)
+    if gumbel is None:
+        gumbel = bc.gumbel_field(generator, ml.shape, ml.device)
+    action = (ml + gumbel).argmax(dim=-1)
     logp = torch.log_softmax(ml, dim=-1)
     return action.to(torch.int32), logp.gather(-1, action[:, None])[:, 0]
 

@@ -1,5 +1,5 @@
-"""Checkpoints of the DQN and AlphaZero training states, and exact resume
-points.
+"""Checkpoints of the DQN, AlphaZero and PPO training states, and exact
+resume points.
 
 Port of ``gobblet_rl_tpu/train/checkpoint.py`` with its own on-disk format:
 each step is one ``ckpt-<step>.pt`` file written by ``torch.save`` from
@@ -16,7 +16,10 @@ torch generator's state.  Host-side state that is not a tensor (the numpy
 generator of the mixed opponent) goes into the JSON sidecar
 ``meta-<step>.json``, written before the payload.  An AlphaZero resume
 point (:func:`save_az` with a generator) holds the net, the AdamW state,
-the env batch and the generator's state.
+the env batch and the generator's state.  A PPO resume point
+(:func:`save_ppo`) holds both nets, both Adam states, both env batches,
+the generator's state and the league pool (a list of state dicts); the
+opponent draw's numpy generator goes into the sidecar.
 """
 
 from __future__ import annotations
@@ -189,6 +192,38 @@ def restore_az(directory: str, az_state, generator: torch.Generator | None = Non
     if generator is not None:
         generator.set_state(payload["generator"])
     return step
+
+
+def save_ppo(directory: str, ppo_state, generator: torch.Generator, pool: list, step: int,
+             meta: dict | None = None) -> None:
+    """A PPO resume point: ``ppo_state``'s nets, optimizers and env
+    batches, the generator's state and the league ``pool``."""
+    save_payload(directory, {
+        "nets": [net.state_dict() for net in ppo_state.nets],
+        "optimizers": [opt.state_dict() for opt in ppo_state.optimizers],
+        "env_states": [env._asdict() for env in ppo_state.env_states],
+        "generator": generator.get_state(),
+        "pool": pool,
+    }, step, meta)
+
+
+def restore_ppo(directory: str, ppo_state, generator: torch.Generator,
+                step: int | None = None) -> list:
+    """Load a :func:`save_ppo` step (the newest if ``step`` is None) into
+    ``ppo_state`` and ``generator`` in place (tensors on the generator's
+    device); returns the league pool."""
+    payload, step = restore_payload(directory, step)
+    if payload is None:
+        raise FileNotFoundError(f"no checkpoint in {directory!r}")
+    dev = generator.device
+    for net, sd in zip(ppo_state.nets, payload["nets"]):
+        net.load_state_dict(sd)
+    for opt, sd in zip(ppo_state.optimizers, payload["optimizers"]):
+        opt.load_state_dict(sd)
+    ppo_state.env_states = [PlanesState(**{k: v.to(dev) for k, v in env.items()})
+                            for env in payload["env_states"]]
+    generator.set_state(payload["generator"])
+    return [{k: v.to(dev) for k, v in sd.items()} for sd in payload["pool"]]
 
 
 def save_params(path: str, net: torch.nn.Module) -> None:

@@ -9,7 +9,9 @@ sync every ``target_update_freq`` gradient steps).
 
 The opponent is "random", "greedy" (the batched depth-1/2 lookahead of
 ``policies/greedy_jax.py``), "self" (a frozen copy of the learner) or
-"mixed" (one of the three drawn per iteration).
+"mixed" (one of the three drawn per iteration).  With ``defense_bc_weight
+> 0`` every update adds the cross-entropy of the masked Q-values to the
+solver's labels over the whole defense bank (``train/defense.py``).
 
 The networks are :class:`QNet` modules held in a mutable
 :class:`TrainState`; updates change them in place.  All device randomness
@@ -31,7 +33,7 @@ from gobblet_rl_torch.models.mlp import QNet, masked_argmax, masked_q
 from gobblet_rl_torch.ops import batched_core as bc
 from gobblet_rl_torch.policies import greedy_jax
 from gobblet_rl_torch.train import checkpoint as ckpt
-from gobblet_rl_torch.train import replay
+from gobblet_rl_torch.train import defense, replay
 
 MIXED_KINDS = ("random", "greedy", "self")  # the order of mixed_weights
 
@@ -177,9 +179,11 @@ def init_env_state(config: DQNConfig, opponent_fn, opp_net, generator: torch.Gen
     return state
 
 
-def update(config: DQNConfig, ts: TrainState, batch) -> torch.Tensor:
+def update(config: DQNConfig, ts: TrainState, batch, bank: dict | None = None) -> torch.Tensor:
     """One double-DQN gradient step on ``batch`` = (obs, action, reward_n,
-    done_n, obs_n, mask_n), in place on ``ts``; returns the detached loss."""
+    done_n, obs_n, mask_n), in place on ``ts``; returns the detached loss.
+    With a defense ``bank``, the loss adds ``defense_bc_weight`` times the
+    bank's cross-entropy over the masked Q-values as logits."""
     obs, action, reward_n, done_n, obs_n, mask_n = batch
     with torch.no_grad():
         q_next = masked_q(ts.target_net(obs_n), mask_n)
@@ -193,6 +197,8 @@ def update(config: DQNConfig, ts: TrainState, batch) -> torch.Tensor:
     q = ts.net(obs)
     q_a = q.gather(-1, action.long()[:, None])[:, 0]
     loss = ((q_a - target) ** 2).mean()
+    if bank is not None:
+        loss = loss + config.defense_bc_weight * defense.bank_loss(ts.net(bank["obs"]), bank)
     ts.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     ts.optimizer.step()
@@ -202,8 +208,9 @@ def update(config: DQNConfig, ts: TrainState, batch) -> torch.Tensor:
     return loss.detach()
 
 
-def make_train_iteration(config: DQNConfig):
-    """Returns ``(train_iteration, opponent_fn)``;
+def make_train_iteration(config: DQNConfig, bank: dict | None = None):
+    """Returns ``(train_iteration, opponent_fn)`` (updates with the defense
+    ``bank``, if given);
     ``train_iteration(ts, env_state, buffer, generator, mark=None)`` returns
     ``(env_state, buffer, mean loss)`` and updates ``ts`` and the ring in
     place.  ``mark``, if given, is called with "collect", "insert",
@@ -246,7 +253,7 @@ def make_train_iteration(config: DQNConfig):
         U, bs = config.update_per_collect, config.batch_size
         flat = replay.sample(buffer, generator, bs * U)
         mark("sample")
-        losses = [update(config, ts, tuple(x[u * bs:(u + 1) * bs] for x in flat))
+        losses = [update(config, ts, tuple(x[u * bs:(u + 1) * bs] for x in flat), bank)
                   for u in range(U)]
         mark("updates")
         return env_state, buffer, torch.stack(losses).mean()
@@ -322,18 +329,18 @@ def train(config: DQNConfig = DQNConfig(), logger=None, generations: int = 1,
     meta sidecar) and, at start, restores the newest one: a run preempted
     and relaunched with the same arguments continues the schedule where it
     stopped and ends bit-identical to an uninterrupted run."""
-    if config.defense_bc_weight > 0:
-        raise NotImplementedError(
-            "defense_bc_weight > 0 needs the defense bank (train/defense.py, "
-            "ROADMAP A.13), which is not ported yet")
-
     dev = resolve_device(device)
     generator = torch.Generator(device=dev)
     generator.manual_seed(config.seed)
     ts = init_train_state(config, make_net(config, dev), generator)
     rng_mix = np.random.default_rng(config.seed)
+    bank = None
+    if config.defense_bc_weight > 0:
+        bank = defense.bank_tensors(defense.generate_defense_bank(
+            num_games=config.defense_bank_games, seed=config.seed,
+            depth=config.defense_bank_depth, device=dev), dev)
     if config.opponent == "mixed":
-        variants = {kind: make_train_iteration(dataclasses.replace(config, opponent=kind))
+        variants = {kind: make_train_iteration(dataclasses.replace(config, opponent=kind), bank)
                     for kind in MIXED_KINDS}
 
         def pick_iteration():
@@ -342,7 +349,7 @@ def train(config: DQNConfig = DQNConfig(), logger=None, generations: int = 1,
         # evaluation and the env bootstrap use the greedy opponent
         train_iteration, opponent_fn = variants["greedy"]
     else:
-        train_iteration, opponent_fn = make_train_iteration(config)
+        train_iteration, opponent_fn = make_train_iteration(config, bank)
 
         def pick_iteration():
             return train_iteration

@@ -1,7 +1,7 @@
 """Trained-agent zoo: the committed agents, loaded into torch modules.
 
-Port of ``gobblet_rl_tpu/zoo/__init__.py`` for the ``dqn`` and
-``alphazero`` families.  The agents are the flax-serialized parameter
+Port of ``gobblet_rl_tpu/zoo/__init__.py`` for the ``dqn``, ``alphazero``
+and ``ppo`` families.  The agents are the flax-serialized parameter
 blobs and the ``manifest.json`` committed in ``gobblet_rl_tpu/zoo/``; this
 module reads them by path (or from ``$GOBBLET_ZOO_DIR``), decodes them with
 its own msgpack reader (:mod:`gobblet_rl_torch.zoo.flax_msgpack`) and
@@ -10,8 +10,6 @@ carries the weights across with :mod:`gobblet_rl_torch.models.convert`:
     from gobblet_rl_torch import zoo
     net, params, meta = zoo.load("alphazero_gumbel32")   # ConvActorCritic on the card
     policy = zoo.policy("alphazero_gumbel32")            # eval/tournament policy
-
-The ``ppo`` family waits for the PPO policy's port.
 """
 
 from __future__ import annotations
@@ -27,10 +25,6 @@ from gobblet_rl_torch.models.convert import actor_critic_params_from_flax, qnet_
 from gobblet_rl_torch.models.mlp import QNet
 from gobblet_rl_torch.train import alphazero
 from gobblet_rl_torch.zoo import flax_msgpack
-
-_NOT_PORTED = {
-    "ppo": "the PPO policy and trainer (ROADMAP A.12)",
-}
 
 
 def _zoo_dir() -> str:
@@ -73,11 +67,7 @@ def load(name: str, expect_family: str | None = None,
             f"zoo entry {name!r} is family {family!r}, but this loader expects "
             f"{expect_family!r}; pick one of "
             f"{[n for n in names() if meta(n)['family'] == expect_family] or 'none'}")
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"zoo entry {name!r} is family {family!r}, which needs "
-            f"{_NOT_PORTED[family]}, not ported yet; the dqn and alphazero families load")
-    if family not in ("dqn", "alphazero"):
+    if family not in ("dqn", "alphazero", "ppo"):
         raise ValueError(f"unknown zoo family {family!r}")
 
     with open(os.path.join(_zoo_dir(), entry["file"]), "rb") as f:
@@ -87,6 +77,9 @@ def load(name: str, expect_family: str | None = None,
         net = QNet(hidden_sizes=tuple(net_cfg["hidden_sizes"]), dueling=net_cfg["dueling"],
                    device=device)
         net.load_state_dict(qnet_params_from_flax(params, dueling=net_cfg["dueling"]))
+    elif family == "ppo":
+        net = ac.MLPActorCritic(hidden_sizes=tuple(net_cfg["hidden_sizes"]), device=device)
+        net.load_state_dict(actor_critic_params_from_flax(params, "mlp"))
     else:
         if net_cfg["model"] == "conv":
             net = ac.ConvActorCritic(channels=net_cfg["channels"], blocks=net_cfg["blocks"],
@@ -100,8 +93,11 @@ def load(name: str, expect_family: str | None = None,
 def policy(name: str, device=None, **overrides):
     """Tournament policy ``(generator, board, current) -> actions`` of a
     zoo entry; ``overrides`` tune its evaluation: ``num_sims``/``c_puct``
-    for alphazero (over the manifest's ``eval`` row), ``eps`` for dqn."""
+    for alphazero (over the manifest's ``eval`` row), ``eps`` for dqn,
+    ``sample`` for ppo."""
     net, _, entry = load(name, device=device)
     if entry["family"] == "alphazero":
         return alphazero.az_policy(net, **{**entry.get("eval", {}), **overrides})
+    if entry["family"] == "ppo":
+        return tournament.ppo_policy(net, **overrides)
     return tournament.dqn_policy(net, **overrides)

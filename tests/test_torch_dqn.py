@@ -23,6 +23,7 @@ from gobblet_rl_torch.models import mlp as tmlp
 from gobblet_rl_torch.models.convert import qnet_params_from_flax
 from gobblet_rl_torch.ops import batched_core as tbc
 from gobblet_rl_torch.policies import greedy_jax as greedy_jax_torch
+from gobblet_rl_torch.train import checkpoint as ckpt
 from gobblet_rl_torch.train import dqn as tdqn
 from gobblet_rl_torch.train import replay as trp
 from gobblet_rl_tpu.models.mlp import QNet, masked_q
@@ -43,6 +44,16 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_solver_table():
+    """The defense term's bank runs the native solver, whose table is 2 GiB
+    once touched; release it at the end of the module."""
+    yield
+    from gobblet_rl_torch.native import engine
+
+    engine.solve_tt_clear()
 
 
 def flax_params(hidden, dueling, seed=0, dtype=jnp.float32):
@@ -406,16 +417,23 @@ def test_train_runs_and_evaluates():
 @pytest.mark.parametrize("kw", [dict(opponent="greedy"), dict(opponent="mixed"),
                                 dict(defense_bc_weight=1.0), dict(checkpoint="x")])
 def test_unported_options_raise(kw, tmp_path):
-    """Only the defense term is left unported: ``defense_bc_weight > 0``
-    raises, naming A.13, with every opponent and with checkpoints on."""
+    """The option once left unported, the defense term (``defense_bc_weight
+    > 0``, A.13), now trains with every opponent and with checkpoints on:
+    the bank is built, the loss stays finite and the resume points are
+    written.  The solver's table is released at the end of the module."""
     kw = dict(kw)
     dirs = {}
     if kw.pop("checkpoint", None):
         dirs = dict(checkpoint_dir=str(tmp_path / "c"), full_resume_dir=str(tmp_path / "f"))
     kw.setdefault("defense_bc_weight", 0.5)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        tdqn.train(small_config(**kw), device=CPU, **dirs)
-    assert not (tmp_path / "c").exists() and not (tmp_path / "f").exists()
+    ts, history = tdqn.train(small_config(**kw, num_envs=16, greedy_depth=1,
+                                          defense_bank_games=4, defense_bank_depth=10),
+                             device=CPU, **dirs)
+    assert len(history) == 1 and np.isfinite(history[0]["loss"])
+    assert ts.grad_steps == 2 * 2
+    if dirs:
+        assert ckpt.latest_step(dirs["full_resume_dir"]) == 0
+        assert ckpt.latest_step(dirs["checkpoint_dir"]) == ts.grad_steps
 
 
 # ---------------------------------------------------------------------------
@@ -549,7 +567,7 @@ def test_mixed_kinds_sequence_matches_jax(monkeypatch):
             return ts, env_state, buffer, key, jnp.float32(0)
         return it, jdqn.make_opponent_fn(dataclasses_replace(config, opponent="random"), net)
 
-    def fake_torch(config):
+    def fake_torch(config, bank=None):
         def it(ts, env_state, buffer, generator):
             seqs["torch"].append(config.opponent)
             return env_state, buffer, torch.zeros(())

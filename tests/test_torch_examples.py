@@ -1,7 +1,8 @@
 """The torch port's tournament and command lines: match accounting, the
 metrics logger, a tiny DQN CLI training run whose ``--full-resume-dir``
-relaunch continues the schedule, and a tiny AlphaZero CLI run with its
-evaluation."""
+relaunch continues the schedule, a tiny AlphaZero CLI run with its
+evaluation, and a tiny PPO CLI league run relaunched from its
+``--checkpoint-dir``."""
 
 import json
 
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from gobblet_rl_torch.eval import tournament
-from gobblet_rl_torch.examples import example_alphazero, example_dqn
+from gobblet_rl_torch.examples import example_alphazero, example_dqn, example_ppo
 from gobblet_rl_torch.train import checkpoint as ckpt
 from gobblet_rl_torch.train.logging import make_logger
 
@@ -113,9 +114,52 @@ def test_alphazero_cli_trains_and_evaluates(tmp_path, capsys, search):
 
 
 @pytest.mark.parametrize("flags,item", [(["--watch"], "A.17"),
-                                        (["--eval-alphabeta-depth", "1"], "A.14")])
-def test_alphazero_cli_unported_modes_raise(flags, item):
+                                        (["--eval-alphabeta-depth", "2"], "A.14")])
+def test_alphazero_cli_unported_modes_raise(flags, item, tmp_path, capsys):
+    """``--watch`` waits for the host surface (A.17) and raises;
+    ``--eval-alphabeta-depth``, which waited for the native alpha-beta
+    (A.14), now evaluates against it."""
     args = example_alphazero.get_parser().parse_args(flags)
     assert args.device == "cuda" and args.search == "puct"
-    with pytest.raises(NotImplementedError, match=item):
-        example_alphazero.main(args)
+    if item == "A.17":
+        with pytest.raises(NotImplementedError, match=item):
+            example_alphazero.main(args)
+        return
+    example_alphazero.main(az_args(tmp_path, *flags, "--search", "gumbel", "--iterations", "1",
+                                   "--eval-games", "4"))
+    out = capsys.readouterr().out
+    assert "alphazero vs alphabeta-2: " in out and "'games': 4" in out
+
+
+def ppo_args(tmp_path, *extra):
+    return example_ppo.get_parser().parse_args([
+        "--device", "cpu", "--logdir", str(tmp_path / "log"), "--num-envs", "16",
+        "--segment-len", "4", "--shared-policy", "--learner-player", "both",
+        "--opponent", "mixed", "--mixed-weights", "0.4", "0.3", "0.3",
+        "--defense-bc-weight", "1.0", "--defense-bank-games", "4", "--defense-bank-sides", "both",
+        "--checkpoint-dir", str(tmp_path / "ckpt"), *extra])
+
+
+def test_ppo_cli_trains_and_resumes(tmp_path, capsys):
+    """The league with the defense term for 2 iterations, relaunched for a
+    third: exactly one more iteration runs, and a finished run trains
+    nothing."""
+    from gobblet_rl_torch.native import engine
+
+    try:
+        st, history = example_ppo.main(ppo_args(tmp_path, "--iterations", "2"))
+        assert [h["iteration"] for h in history] == [0, 1]
+        logdir = tmp_path / "log" / "gobblet_rl_torch" / "ppo"
+        assert len((logdir / "history.jsonl").read_text().splitlines()) == 2
+        assert ckpt.latest_step(str(tmp_path / "ckpt")) == 1
+        _, again = example_ppo.main(ppo_args(tmp_path, "--iterations", "3"))
+        assert [h["iteration"] for h in again] == [2]
+        assert len((logdir / "history.jsonl").read_text().splitlines()) == 3
+        _, done = example_ppo.main(ppo_args(tmp_path, "--iterations", "3"))
+        assert done == [] and "resumed at end" in capsys.readouterr().out
+    finally:
+        engine.solve_tt_clear()
+    args = example_ppo.get_parser().parse_args(["--resume"])
+    assert args.device == "cuda" and example_ppo.make_config(args).defense_bank_depth == 16
+    with pytest.raises(SystemExit, match="--checkpoint-dir"):
+        example_ppo.main(args)

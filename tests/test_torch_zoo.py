@@ -2,7 +2,8 @@
 on every committed blob; ``dqn_greedy``'s Q-values and
 ``alphazero_gumbel32``'s logits and values against the JAX zoo's (bf16
 tolerance: 2e-2 of max |output|, as in test_torch_dqn.py); their
-policies; the family that is not ported; ``GOBBLET_ZOO_DIR``."""
+policies; ``ppo_league``'s logits and values against JAX's and its
+policy; the loader's refusals; ``GOBBLET_ZOO_DIR``."""
 
 import json
 import pathlib
@@ -17,6 +18,7 @@ from flax import serialization
 
 from gobblet_rl_torch import zoo as tzoo
 from gobblet_rl_torch.eval import tournament
+from gobblet_rl_torch.models import actor_critic as tac
 from gobblet_rl_torch.ops import batched_core as tbc
 from gobblet_rl_torch.zoo import flax_msgpack
 from gobblet_rl_tpu import zoo as jzoo
@@ -141,12 +143,58 @@ def test_alphazero_policy_plays_legal_moves():
         state = tbc.autoreset_planes(tbc.step_planes(state, a))
 
 
+def test_ppo_league_matches_jax():
+    """Logits and values within the bf16 tolerance of the JAX zoo's; the
+    masked argmax equal wherever the top two logits are separated."""
+    board, cur = fixed_positions()
+    obs = tbc.features_lm(board, cur).t()
+    net, _, entry = tzoo.load("ppo_league", device=CPU)
+    assert entry["family"] == "ppo" and net.dtype == torch.bfloat16
+    with torch.no_grad():
+        got = [x.numpy() for x in net(obs)]
+    jnet, jparams, _ = jzoo.load("ppo_league")
+    want = [np.asarray(x) for x in jnet.apply(jparams, jnp.asarray(obs.numpy()))]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=2e-2 * np.abs(w).max(), rtol=0)
+    tol = 2e-2 * np.abs(want[0]).max()
+    mask = tbc.legal_mask_planes(board, cur).t().numpy()
+    masked = np.where(mask, want[0], -np.inf)
+    top2 = np.sort(masked, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * tol
+    assert clear.sum() > 128
+    np.testing.assert_array_equal(np.where(mask, got[0], -np.inf).argmax(1)[clear],
+                                  masked.argmax(1)[clear])
+
+
+def test_ppo_league_policy_beats_random():
+    pol = tzoo.policy("ppo_league", device=CPU)
+    state = tbc.reset_planes(32, CPU)
+    for _ in range(8):
+        a = pol(None, state.board, state.current)
+        assert a.dtype == torch.int32
+        assert tbc.legal_mask_planes(state.board, state.current)[a.long(), torch.arange(32)].all()
+        state = tbc.autoreset_planes(tbc.step_planes(state, a))
+    m = tournament.play_match(tzoo.policy("ppo_league", device=CPU, sample=True),
+                              tournament.random_policy(), num_games=64, device=CPU)
+    assert m["win_rate"] > 0.8, m
+
+
 @pytest.mark.parametrize("name,needs", [("ppo_league", "A.12")])
-def test_other_families_raise(name, needs):
-    with pytest.raises(NotImplementedError, match=needs):
-        tzoo.load(name, device=CPU)
+def test_other_families_raise(name, needs, tmp_path, monkeypatch):
+    """``ppo_league``'s family, which waited for A.12, now loads; what
+    raises is an entry of another family than expected, a family the
+    loader does not know, and an unknown name."""
+    net, _, entry = tzoo.load(name, expect_family="ppo", device=CPU)
+    assert entry["family"] == "ppo" and isinstance(net, tac.MLPActorCritic)
     with pytest.raises(ValueError, match="expects 'dqn'"):
         tzoo.load(name, expect_family="dqn", device=CPU)
+    manifest = json.loads((ZOO / "manifest.json").read_text())
+    shutil.copy(ZOO / manifest[name]["file"], tmp_path / manifest[name]["file"])
+    (tmp_path / "manifest.json").write_text(json.dumps({name: dict(manifest[name],
+                                                                   family="sarsa")}))
+    monkeypatch.setenv("GOBBLET_ZOO_DIR", str(tmp_path))
+    with pytest.raises(ValueError, match="unknown zoo family 'sarsa'"):
+        tzoo.load(name, device=CPU)
     with pytest.raises(KeyError):
         tzoo.meta("no_such_agent")
 
