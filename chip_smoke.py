@@ -78,12 +78,35 @@ its plain PyTorch version:
 17. the zoo agent ``ppo_league`` on the card: logits and values on 4,096
     positions against the CPU's, 2,048 games against the depth-2 greedy with
     colours swapped (win rate at least 0.80), and ``defense_audit`` (32
-    games, the exact solver at depth 18 attacking): at least 11.0 plies
-    survived; the solver's host seconds apart from the rest; then the same
-    audit against oracles of fixed salts 0-3, each from a cleared solver
-    table (salt and table pick the attack line among equally fast wins).
+    games, the exact solver at depth 18 attacking; every move graded),
+    printed with the solver's host seconds apart from the rest; then the
+    same audit against oracles of fixed salts 0-3, each from a cleared
+    solver table (salt and table pick the attack line among equally fast
+    wins): plies survived and mistakes per game exactly those of the CPU
+    and of the JAX package for the same salts;
+18. the learned-eval value search: exact float32 nets (a plain-headed
+    ``QNet`` and an ``MLPActorCritic``, one hidden layer, weights multiples
+    of 2^-6) on 256 positions 10 plies deep under one tie field, at depth 1
+    and at depth 2 with the leaf solver on and off, card against CPU: the
+    DQN head's actions identical, the actor-critic's leaf values within
+    1e-6 and its actions identical wherever the two best noisy scores are
+    more than 1e-6 apart; then ``alphazero_gumbel32+search2`` and
+    ``dqn_greedy+search2`` timed (1 warm-up, 3 calls by CUDA events) at 64
+    and 1,024 positions, every action legal, peak memory at most 16 GiB;
+19. the tournament command line ``example_tournament.main`` (random,
+    greedy-2 and both ``+search2`` entrants, 64 games a pair): every pair's
+    games accounted for, both entrants rated above greedy-2 and greedy-2
+    above random; then ``alphazero_gumbel32+search2`` against the exact
+    solver at depth 15, 8 games moving first (no loss, win rate at least
+    0.85);
+20. the per-env functional API at 262,144 envs for 64 plies from
+    ``batched_reset``: ``batched_step_strict`` and ``step_planes`` on one
+    stream (random legal moves, an arbitrary one every 8th ply, no
+    auto-reset) equal field for field at every ply, ``batched_legal_mask``
+    equal to ``legal_mask_planes``, the debug invariants holding on every
+    env and ``checked_step`` raising on a corrupted board.
 
-Phases 7-17 each print one JSON line with the card's name and power limit
+Phases 7-20 each print one JSON line with the card's name and power limit
 and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
@@ -137,8 +160,22 @@ LEAGUE_ARGS = ["--shared-policy", "--learner-player", "both", "--opponent", "mix
                "--mixed-weights", "0.1", "0.6", "0.2", "0.1", "--search-sims", "4",
                "--defense-bc-weight", "1.0", "--defense-bank-games", "384",
                "--defense-bank-sides", "both", "--num-envs", "512", "--seed", "1626"]
-PPO_ZOO_MIN_WIN_RATE, AUDIT_GAMES, AUDIT_DEPTH, AUDIT_MIN_PLIES = 0.80, 32, 18, 11.0
-AUDIT_SALTS = range(4)
+PPO_ZOO_MIN_WIN_RATE, AUDIT_GAMES, AUDIT_DEPTH = 0.80, 32, 18
+# (mean plies survived, mistakes per game) of ppo_league against the oracle
+# of each fixed salt from a cleared table: what tools/ppo_league_cpu.py
+# prints on the CPU, and what the JAX package's audit gives for each salt
+AUDIT_BY_SALT = {0: (12.0, 0.5), 1: (7.6875, 0.96875), 2: (12.875, 0.0625),
+                 3: (10.9375, 1.03125)}
+# The value search: card against CPU, then the zoo entrants' time at the
+# tournament command line's default width (64 games a half) and at 1,024.
+VS_PARITY_B, VS_PARITY_PLIES, VS_TIMING_B, VS_MAX_PEAK_GIB = 256, 10, (64, 1024), 16.0
+TOURNAMENT_ARGS = ["--agents", "random", "greedy-2", "--zoo-search", "dqn_greedy",
+                   "alphazero_gumbel32", "--games", "64", "--seed", "0", "--json"]
+# the TPU round's grand table (docs/RESULTS.md:416-427): context only
+TPU_ROUND_ELO = {"alphazero_gumbel32+search2": 1170, "dqn_greedy+search2": 1116,
+                 "greedy-2": 778, "random": 210}
+SOLVER_GAMES, SOLVER_MAX_PLIES, SOLVER_MIN_WIN_RATE = 8, 60, 0.85
+API_B, API_PLIES, API_ARBITRARY_EVERY = 262144, 64, 8
 
 # The bound.  Bytes: HBM at 3.35e12 B/s (NVIDIA's H100 SXM data sheet).
 # Operations: the machine instructions of the kernel's ply loop, read from
@@ -962,8 +999,6 @@ def phase_ppo_zoo(smi: str, gen: torch.Generator) -> None:
     finally:
         engine.solve_batch = real_batch
     check(audit["ungraded_games"] == 0, "ppo zoo: every audited move graded")
-    check(audit["mean_plies_survived"] >= AUDIT_MIN_PLIES,
-          f"ppo zoo: {audit['mean_plies_survived']:.2f} plies survived >= {AUDIT_MIN_PLIES}")
 
     # the oracle picks among equally fast wins by its salt and by what its
     # transposition table holds, and so the lines the defense is tested on:
@@ -978,12 +1013,15 @@ def phase_ppo_zoo(smi: str, gen: torch.Generator) -> None:
         return fn
 
     by_salt = {}
-    for salt in AUDIT_SALTS:
+    for salt, want in AUDIT_BY_SALT.items():
         engine.solve_tt_clear()
         res = tournament.defense_audit(zoo.policy("ppo_league", device=dev),
                                        num_games=AUDIT_GAMES, depth=AUDIT_DEPTH,
                                        oracle_policy=fixed_salt_oracle(salt), device=dev)
         by_salt[salt] = [res["mean_plies_survived"], res["mistakes_per_game"]]
+        check(res["ungraded_games"] == 0, f"ppo zoo: salt {salt}: every audited move graded")
+        check(tuple(by_salt[salt]) == want,
+              f"ppo zoo: salt {salt}: (plies, mistakes) {tuple(by_salt[salt])} == {want}")
     log(json.dumps({"metric": "zoo_ppo_league", "device": smi, **match,
                     "manifest_vs_greedy_2": entry["metrics"]["vs_greedy-2"],
                     "positions": GREEDY_PARITY_B,
@@ -996,6 +1034,185 @@ def phase_ppo_zoo(smi: str, gen: torch.Generator) -> None:
                     "audit_rest_s": audit_s - solver["s"],
                     "plies_and_mistakes_by_oracle_salt": by_salt,
                     "solver_library": engine.build().name,
+                    "seconds": time.perf_counter() - t0}))
+
+
+def exact_value_nets(dev: torch.device):
+    """A plain-headed ``QNet`` and an ``MLPActorCritic`` in float32 with one
+    hidden layer of 64 and every weight and bias a multiple of 2^-6 with a
+    numerator in [-16, 16] (on 0/1 inputs every dot product is exact), each
+    on the CPU and on ``dev`` with the same weights."""
+    from gobblet_rl_torch.models import actor_critic as ac
+    from gobblet_rl_torch.models.mlp import QNet
+
+    rng = torch.Generator().manual_seed(0)
+    pairs = []
+    for make in (lambda d: QNet(hidden_sizes=(64,), dtype=torch.float32, device=d),
+                 lambda d: ac.MLPActorCritic(hidden_sizes=(64,), dtype=torch.float32, device=d)):
+        cpu = make("cpu")
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.copy_(torch.randint(-16, 17, p.shape, generator=rng) / 64)
+        card = make(dev)
+        card.load_state_dict(cpu.state_dict())
+        pairs.append((cpu, card))
+    return pairs
+
+
+def phase_value_search(smi: str, gen: torch.Generator) -> None:
+    """18. the value search on the card against the CPU, then the zoo
+    entrants' time and peak memory."""
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.policies import value_search as vs
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    (q_cpu, q_card), (ac_cpu, ac_card) = exact_value_nets(dev)
+    n = VS_PARITY_B
+    state, _ = bc.rollout_random(bc.reset_planes(n, dev), gen, VS_PARITY_PLIES)
+    board, cur = state.board, state.current
+    field = bc.gumbel_field(gen, (54, n), dev)
+    heads = {"dqn": (vs.dqn_value_fn(q_card), vs.dqn_value_fn(q_cpu)),
+             "az": (vs.az_value_fn(ac_card), vs.az_value_fn(ac_cpu))}
+    parity = {}
+    for head, (vf_card, vf_cpu) in heads.items():
+        for depth, solve in ((1, True), (2, False), (2, True)):
+            what = f"value search {head} depth {depth} solve {solve}"
+            card = vs.make_value_search(vf_card, depth, solve)(None, board, cur, gumbel=field)
+            cpu = vs.make_value_search(vf_cpu, depth, solve)(None, board.cpu(), cur.cpu(),
+                                                             gumbel=field.cpu())
+            same = card.cpu() == cpu
+            if head == "dqn":
+                check(bool(same.all()), f"{what}: card == CPU (tolerance 0)")
+                parity[f"{head}_d{depth}_{int(solve)}"] = {"positions": n, "differing": 0}
+                continue
+            score = vs.search_scores(vf_card, board, cur, depth, solve)
+            top2 = (score + 1e-5 * field).topk(2, dim=0).values
+            clear = (top2[0] - top2[1] > 1e-6).cpu()
+            check(bool(same[clear].all()), f"{what}: card == CPU where the top two differ "
+                  f"by more than 1e-6")
+            parity[f"{head}_d{depth}_{int(solve)}"] = {
+                "positions": n, "compared": int(clear.sum()), "not_compared": int((~clear).sum()),
+                "differing_of_not_compared": int((~same[~clear]).sum())}
+    # the actor-critic's leaf values on every depth-2 leaf of 8 positions
+    b8, c8 = board[..., :8], cur[:8]
+    leaves = vs._fold_actions(vs._fold_actions(b8, c8), (1 - c8).repeat(54))
+    us = c8.repeat(54 * 54)
+    leaf_err = float((heads["az"][0](leaves, us).cpu()
+                      - heads["az"][1](leaves.cpu(), us.cpu())).abs().max())
+    check(leaf_err <= 1e-6, f"value search: az leaf values within 1e-6 ({leaf_err:.3g})")
+    parity_s = time.perf_counter() - t0
+
+    timings = {}
+    for name in ("alphazero_gumbel32", "dqn_greedy"):
+        policy = vs.zoo_search_policy(name, device=dev)
+        for B in VS_TIMING_B:
+            state, _ = bc.rollout_random(bc.reset_planes(B, dev), gen, VS_PARITY_PLIES)
+            b, c = state.board, state.current
+            del state
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            timed(lambda: policy(gen, b, c), 1)
+            actions, ms = timed(lambda: policy(gen, b, c), 3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            legal = bc.legal_mask_planes(b, c)[actions.long(), torch.arange(B, device=dev)]
+            check(bool(legal.all()), f"{name}+search2 at B={B}: every action legal")
+            if B >= 1024:
+                check(peak <= VS_MAX_PEAK_GIB,
+                      f"{name}+search2 at B={B}: peak {peak:.2f} GiB <= {VS_MAX_PEAK_GIB}")
+            timings[f"{name}+search2 B={B}"] = {
+                "ms": ms, "ms_median": statistics.median(ms), "peak_mem_gib": peak,
+                "allocated_before_gib": base / 2**30,
+                "candidates_per_chunk": vs.candidate_chunk(B, 2, True)}
+    log(json.dumps({"metric": "value_search", "device": smi, "parity_positions": n,
+                    "parity": parity, "az_leaf_max_abs_err": leaf_err, "parity_s": parity_s,
+                    "fold_lanes": vs.FOLD_LANES, "net_lanes": vs.NET_LANES,
+                    "timings": timings, "seconds": time.perf_counter() - t0}))
+
+
+def phase_tournament(smi: str, gen: torch.Generator) -> None:
+    """19. the tournament command line, then the AZ search entrant against
+    the exact solver."""
+    from gobblet_rl_torch.eval import tournament
+    from gobblet_rl_torch.examples import example_tournament
+    from gobblet_rl_torch.policies import value_search as vs
+
+    t0 = time.perf_counter()
+    args = example_tournament.get_parser().parse_args(TOURNAMENT_ARGS + ["--device",
+                                                                         str(gen.device)])
+    res = example_tournament.main(args)
+    cli_s = time.perf_counter() - t0
+    for pair, m in res["pairs"].items():
+        check(m["wins"] + m["losses"] + m["undecided"] == m["games"] == args.games,
+              f"tournament: {pair} accounts for its games")
+    elo = {k: v["elo"] for k, v in res["standings"].items()}
+    for entrant in ("dqn_greedy+search2", "alphazero_gumbel32+search2"):
+        check(elo[entrant] > elo["greedy-2"], f"tournament: {entrant} above greedy-2 ({elo})")
+    check(elo["greedy-2"] > elo["random"], f"tournament: greedy-2 above random ({elo})")
+
+    w0 = time.perf_counter()
+    match = tournament.play_match(vs.zoo_search_policy("alphazero_gumbel32", device=gen.device),
+                                  tournament.solver_policy(depth=15), num_games=SOLVER_GAMES,
+                                  seed=0, swap_colors=False, max_plies=SOLVER_MAX_PLIES,
+                                  device=gen.device)
+    solver_s = time.perf_counter() - w0
+    check(match["losses"] == 0 and match["win_rate"] >= SOLVER_MIN_WIN_RATE,
+          f"tournament: alphazero_gumbel32+search2 vs solver-15 {match}")
+    log(json.dumps({"metric": "tournament_cli", "device": smi, "args": TOURNAMENT_ARGS,
+                    "standings": res["standings"], "pairs": res["pairs"], "cli_s": cli_s,
+                    "tpu_round_elo_context": TPU_ROUND_ELO,
+                    "search2_vs_solver15": match, "search2_vs_solver15_s": solver_s,
+                    "seconds": time.perf_counter() - t0}))
+
+
+def phase_env_api(smi: str, gen: torch.Generator) -> None:
+    """20. the per-env functional API against the lane-major engine."""
+    from gobblet_rl_torch.core import env as fenv
+    from gobblet_rl_torch.core import rules
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.ops import debug
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    B = API_B
+    es = fenv.batched_reset(B, dev)
+    ps = bc.reset_planes(B, dev)
+    env_ms, planes_ms, arbitrary, illegal = [], [], 0, 0
+    for ply in range(API_PLIES):
+        mask = bc.legal_mask_planes(ps.board, ps.current)
+        check(torch.equal(rules.batched_legal_mask(es.board, es.current), mask.t()),
+              f"env api: ply {ply}: batched_legal_mask == legal_mask_planes")
+        if ply % API_ARBITRARY_EVERY == API_ARBITRARY_EVERY - 1:
+            actions = torch.randint(0, 54, (B,), generator=gen, device=dev, dtype=torch.int32)
+            arbitrary += 1
+            illegal += int((~mask[actions.long(), torch.arange(B, device=dev)] & ~ps.done).sum())
+        else:
+            actions = bc.sample_random_lm(gen, mask)
+        es, ms = timed(lambda: fenv.batched_step_strict(es, actions), 1)
+        env_ms += ms
+        ps, ms = timed(lambda: bc.step_planes(ps, actions), 1)
+        planes_ms += ms
+        same = (torch.equal(es.board, ps.board.permute(2, 0, 1))
+                and torch.equal(es.rewards, ps.rewards.t())
+                and all(torch.equal(getattr(es, f), getattr(ps, f))
+                        for f in ("current", "turn", "done", "winner", "last_action")))
+        check(same, f"env api: ply {ply}: batched_step_strict == step_planes (tolerance 0)")
+        check(bool(debug.state_invariants(ps).all()), f"env api: ply {ply}: invariants hold")
+    done = int(ps.done.sum())
+    bad = ps.board.clone()
+    bad[1, 0, 0], bad[1, 5, 0] = 3, 3                # piece 3 twice on its level
+    try:
+        debug.checked_step(ps._replace(board=bad), bc.sample_random_lm(gen, mask))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised == "pre-step state invalid", f"env api: checked_step raises ({raised})")
+    log(json.dumps({"metric": "env_api", "device": smi, "batch": B, "plies": API_PLIES,
+                    "arbitrary_plies": arbitrary, "illegal_live_actions": illegal,
+                    "finished_games": done, "batched_step_strict_ms_per_ply":
+                    statistics.median(env_ms), "step_planes_ms_per_ply":
+                    statistics.median(planes_ms), "checked_step_raised": raised,
                     "seconds": time.perf_counter() - t0}))
 
 
@@ -1193,6 +1410,11 @@ def main() -> int:
     phase_ppo(smi, gen)
     phase_ppo_league(smi, gen)
     phase_ppo_zoo(smi, gen)
+
+    # 18-20. evaluation and the per-env API; no kernel ----------------------
+    phase_value_search(smi, gen)
+    phase_tournament(smi, gen)
+    phase_env_api(smi, gen)
 
     log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "

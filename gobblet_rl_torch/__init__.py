@@ -9,9 +9,13 @@ Entry points run on the CUDA card unless the caller passes a device
 
 Layout:
 
-* ``core/types.py``        sizes and per-action tables (numpy)
+* ``core/types.py``        sizes, per-action tables (numpy), ``GobbletState``
+* ``core/rules.py``, ``core/observe.py``, ``core/env.py``  the per-env
+  functional API over a leading batch (``reset``, ``step_raw``,
+  ``step_strict``); ``core/rules_np.py`` its NumPy twin for host code
 * ``device.py``            ``device=None`` -> CUDA, or raise
-* ``ops/batched_core.py``  the lane-major ``[3, 9, B]`` engine
+* ``ops/batched_core.py``  the lane-major ``[3, 9, B]`` engine;
+  ``ops/debug.py`` its invariant checks
 * ``kernels/rollout.py``   the fused random rollout (hand-written CUDA,
   ``kernels/csrc/rollout.cu``) and its plain version
 * ``models/mlp.py``        ``QNet`` + masked argmax
@@ -19,25 +23,37 @@ Layout:
   masked sampling helpers; ``models/convert.py`` loads flax parameters
 * ``search/``              Gumbel (sequential halving) and PUCT searches on
   lane-major trees, with batch-first entry points
-* ``policies/greedy_jax.py``  the batched depth-1/2 greedy opponent
+* ``policies/greedy_jax.py``  the batched depth-1/2 greedy opponent;
+  ``policies/value_search.py`` the learned-eval depth-1/2 search (the
+  ``+search2`` entrants); ``policies/greedy.py`` the host greedy
 * ``env/vector.py``        the batch-first vector env and its rollout
+* ``native/engine.py``     the exact solver and alpha-beta expert of
+  ``csrc/gobblet.cpp``, built by ``g++`` at first use
 * ``train/replay.py``      the state-snapshot replay ring and the n-step
   ``Segment`` folds
 * ``train/dqn.py``         the fused DQN actor-learner (random, greedy, self
-  and mixed opponents; checkpoints and exact resume)
+  and mixed opponents, the defense term; checkpoints and exact resume)
 * ``train/alphazero.py``   AlphaZero self-play (Gumbel or PUCT), outcome
   backfill, clipped AdamW updates; checkpoints and exact resume
+* ``train/ppo.py``         PPO self-play with its opponents and league;
+  ``train/defense.py`` the solver-supervised defense bank
 * ``train/checkpoint.py``  ``torch.save`` checkpoints, full resume points
 * ``train/logging.py``     JSONL (and TensorBoard) metrics
-* ``eval/tournament.py``   random, greedy and DQN policies, ``play_match``
-* ``zoo/``                 the committed ``dqn`` and ``alphazero`` agents, read
-  from the JAX package's blobs by a msgpack reader of its own
-* ``examples/example_dqn.py``, ``examples/example_alphazero.py``  the DQN and
-  AlphaZero command lines (training mode)
+* ``eval/tournament.py``   the random, greedy, DQN, PPO, alpha-beta and
+  solver policies, ``play_match``, ``defense_audit``, ``round_robin``
+* ``zoo/``                 the committed ``dqn``, ``alphazero`` and ``ppo``
+  agents, read from the JAX package's blobs by a msgpack reader of its own
+* ``examples/``            the DQN, AlphaZero, PPO and tournament command
+  lines
+* ``board.py``, ``render/``, ``env/aec.py``, ``gobblet_v1.py``  the host
+  surface: the PettingZoo AEC env and its renders (host only: they need
+  ``pettingzoo``, ``gymnasium`` and, to draw, ``pygame``)
 
-Not ported yet: PPO (its trainer, policy and zoo family), the defense
-bank, the rest of evaluation, parallelism and the host surface
-(``ROADMAP.md`` §A).
+Not ported yet: the rest of the host surface (``interactive/``,
+``render/gif.py``, ``adapters/``, ``utils/``, the host random and
+alpha-beta policies, ``NativeEngine``, ``zoo.host_agent``, the other
+command lines and the ``--watch`` modes) and parallelism (``ROADMAP.md``
+§A, A.17 and A.16).
 """
 
 __version__ = "0.1.0"

@@ -8,9 +8,14 @@ Board encoding, as in the JAX package's ``core/types.py``:
 * piece ids are 1..6 for player 0 and -1..-6 for player 1 (1-2 small,
   3-4 medium, 5-6 large), each id at most once;
 * actions are ``Discrete(54)``: ``action = pos + 9 * (piece - 1)``.
+
+``GobbletState`` is one env's state (``core/env.py`` batches it with a
+leading axis); :func:`zeros_state` is a fresh start state in numpy.
 """
 
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -42,3 +47,30 @@ WIN_LINES_NP = np.array(
     ],
     dtype=np.int32,
 )
+
+
+class GobbletState(NamedTuple):
+    """Env state as fixed-shape arrays; a leading batch axis batches it.
+    Torch tensors in :mod:`gobblet_rl_torch.core.env`, numpy arrays from
+    :func:`zeros_state`."""
+
+    board: Any        # int8[..., 3, 9] signed piece ids
+    current: Any      # int32[...], the agent to move (0 or 1)
+    turn: Any         # int32[...], legal plies taken
+    done: Any         # bool[...], game over (every agent terminates)
+    winner: Any       # int8[...]: 0 none, +1 agent 0, -1 agent 1
+    last_action: Any  # int32[...], -1 before the first move
+    rewards: Any      # float32[..., 2], the rewards the last step emitted
+
+
+def zeros_state() -> GobbletState:
+    """A fresh host-side (numpy) start state."""
+    return GobbletState(
+        board=np.zeros((NUM_LEVELS, NUM_CELLS), dtype=np.int8),
+        current=np.int32(0),
+        turn=np.int32(0),
+        done=np.bool_(False),
+        winner=np.int8(0),
+        last_action=np.int32(-1),
+        rewards=np.zeros(2, dtype=np.float32),
+    )

@@ -1,10 +1,10 @@
 """Batched matches between policies over the lane-major engine.
 
-Port of ``gobblet_rl_tpu/eval/tournament.py`` but ``round_robin``: the
-random, greedy, DQN and PPO policies, the native alpha-beta expert and
-exact solver as policies, :func:`play_match` and :func:`defense_audit`.  A
-policy is a function ``(generator, board int8[3, 9, B], current int32[B])
--> int32[B]``.
+Port of ``gobblet_rl_tpu/eval/tournament.py``: the random, greedy, DQN
+and PPO policies, the native alpha-beta expert and exact solver as
+policies, :func:`play_match`, :func:`defense_audit` and
+:func:`round_robin`.  A policy is a function ``(generator, board
+int8[3, 9, B], current int32[B]) -> int32[B]``.
 """
 
 from __future__ import annotations
@@ -240,3 +240,40 @@ def defense_audit(policy: PolicyFn, num_games: int = 32, seed: int = 0, depth: i
         "mistakes_per_game": float(mistakes.mean()),
         "unproven_positions": unproven,
     }
+
+
+def round_robin(policies: Dict[str, PolicyFn], num_games: int = 256, seed: int = 0,
+                device=None) -> Dict[str, Dict]:
+    """Every pair in ``policies``' order through :func:`play_match` (the
+    same seed for each), then an Elo fit: 200 sweeps of K=8 updates on the
+    400 scale over the pairs in that order, skipping pairs without a decided
+    game.  Returns ``{"standings": {name: {"wins", "losses", "elo"}},
+    "pairs": {"a vs b": match}}``."""
+    names = list(policies)
+    results: Dict[str, Dict] = {n: {"wins": 0, "losses": 0} for n in names}
+    pair_results = {}
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            match = play_match(policies[a], policies[b], num_games, seed=seed, device=device)
+            pair_results[(a, b)] = match
+            results[a]["wins"] += match["wins"]
+            results[a]["losses"] += match["losses"]
+            results[b]["wins"] += match["losses"]
+            results[b]["losses"] += match["wins"]
+
+    # the fit updates the pairs in sequence, so their order is part of it
+    elo = {n: 1000.0 for n in names}
+    for _ in range(200):
+        for (a, b), match in pair_results.items():
+            total = match["wins"] + match["losses"]
+            if total == 0:
+                continue
+            score = match["wins"] / total
+            expected = 1.0 / (1.0 + 10 ** ((elo[b] - elo[a]) / 400.0))
+            delta = 8.0 * (score - expected)
+            elo[a] += delta
+            elo[b] -= delta
+    for n in names:
+        results[n]["elo"] = round(elo[n], 1)
+    return {"standings": results,
+            "pairs": {f"{a} vs {b}": m for (a, b), m in pair_results.items()}}

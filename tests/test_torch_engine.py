@@ -95,6 +95,38 @@ def test_package_imports_no_jax():
     assert int(out.stdout.strip()) >= 40  # every module was imported
 
 
+HOST_ONLY = ("gobblet_rl_torch.env.aec", "gobblet_rl_torch.gobblet_v1",
+             "gobblet_rl_torch.render.surface")
+
+
+def test_card_path_needs_no_host_package():
+    """With pettingzoo, gymnasium and pygame blocked (the card's machine has
+    none of them), every module of the port but the host-only ones imports,
+    and so does chip_smoke.py; the host-only ones do need them."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "for name in ('pettingzoo', 'gymnasium', 'pygame'):\n"
+        "    sys.modules[name] = None\n"
+        f"host_only = {HOST_ONLY!r}\n"
+        "import gobblet_rl_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'gobblet_rl_torch.')]\n"
+        "assert set(host_only) <= set(names), names\n"
+        "for name in names:\n"
+        "    if name not in host_only:\n"
+        "        importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "assert not [m for m in host_only if m in sys.modules]\n"
+        "try:\n"
+        "    importlib.import_module('gobblet_rl_torch.gobblet_v1')\n"
+        "except ImportError:\n"
+        "    print(len(names) - len(host_only))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 50
+
+
 # the JAX package's native library, by path or by its build: the port
 # builds and loads its own copy (gobblet_rl_torch/native/engine.py)
 BORROWED_LIBRARY = re.compile(

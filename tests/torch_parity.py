@@ -7,9 +7,11 @@ import numpy as np
 import torch
 
 from gobblet_rl_torch.models import actor_critic as tac
-from gobblet_rl_torch.models.convert import actor_critic_params_from_flax
+from gobblet_rl_torch.models.convert import actor_critic_params_from_flax, qnet_params_from_flax
+from gobblet_rl_torch.models.mlp import QNet as TQNet
 from gobblet_rl_torch.ops import batched_core as tbc
 from gobblet_rl_tpu.models import actor_critic as jac
+from gobblet_rl_tpu.models.mlp import QNet as JQNet
 
 CPU = torch.device("cpu")
 
@@ -27,6 +29,21 @@ def exact_nets(hidden=(64,), seed=0):
                           params)
     tnet = tac.MLPActorCritic(hidden_sizes=hidden, dtype=torch.float32, device=CPU)
     tnet.load_state_dict(actor_critic_params_from_flax(params, "mlp"))
+    return jnet, params, tnet
+
+
+def exact_qnets(hidden=(64,), seed=0):
+    """(flax net, its params, the torch twin): the plain-headed ``QNet`` in
+    float32 with the weights of :func:`exact_nets`, so both frameworks give
+    the same Q-values bit for bit.  (The dueling head's mean over 54
+    actions is not exact in float32.)"""
+    jnet = JQNet(hidden_sizes=hidden, dtype=jnp.float32)
+    params = jnet.init(jax.random.PRNGKey(seed), jnp.zeros((1, 117), jnp.int8))
+    rng = np.random.default_rng(seed)
+    params = jax.tree.map(lambda x: (rng.integers(-16, 17, x.shape) / 64).astype(np.float32),
+                          params)
+    tnet = TQNet(hidden_sizes=hidden, dtype=torch.float32, device=CPU)
+    tnet.load_state_dict(qnet_params_from_flax(params))
     return jnet, params, tnet
 
 
