@@ -104,9 +104,24 @@ its plain PyTorch version:
     stream (random legal moves, an arbitrary one every 8th ply, no
     auto-reset) equal field for field at every ply, ``batched_legal_mask``
     equal to ``legal_mask_planes``, the debug invariants holding on every
-    env and ``checked_step`` raising on a corrupted board.
+    env and ``checked_step`` raising on a corrupted board;
+21. the host agents on the card: the single-env ``NativeEngine`` against
+    the NumPy rules on every board of the depth-2 tree (legal masks for both
+    players, winners) and its greedy-2 against random in 200 games (more
+    than 0.90 of the decided games); ``zoo.host_agent`` of ``dqn_greedy``
+    and ``ppo_league`` on the card in whole games from both seats against
+    ``AlphaBetaGobbletPolicy(depth=6)`` (the port's board and reference
+    observations, no pettingzoo), every action legal, the median ms a move
+    of each agent and of alpha-beta, and the card's moves equal to the CPU
+    host agent's wherever the CPU net's two best legal values are more
+    than twice 2e-2 of its largest magnitude apart; the AlphaZero host agent
+    (``alphazero_gumbel32`` at the manifest's 128 simulations) and
+    ``SearchAgentPolicy`` at 128 simulations, 1 warm-up and 2 timed moves
+    each; one ``SearchAgentPolicy`` move profiled through
+    ``utils.profiling.trace`` inside ``annotate("host_search_move")`` (the
+    trace file names the annotation; kernels, device ms, idle share).
 
-Phases 7-20 each print one JSON line with the card's name and power limit
+Phases 7-21 each print one JSON line with the card's name and power limit
 and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
@@ -128,6 +143,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROLLOUT_B, ROLLOUT_STEPS, REPEATS = 524288, 64, 5
@@ -176,6 +192,13 @@ TPU_ROUND_ELO = {"alphazero_gumbel32+search2": 1170, "dqn_greedy+search2": 1116,
                  "greedy-2": 778, "random": 210}
 SOLVER_GAMES, SOLVER_MAX_PLIES, SOLVER_MIN_WIN_RATE = 8, 60, 0.85
 API_B, API_PLIES, API_ARBITRARY_EVERY = 262144, 64, 8
+# The host agents: games a seat against alpha-beta, their ply cap (two
+# deterministic players can repeat forever: the game has no repetition
+# rule), the compare rule's tolerance, the search agents' timed moves.
+HOST_GAMES_PER_SEAT, HOST_MAX_PLIES, HOST_AB_DEPTH, HOST_TOL = 2, 60, 6, 2e-2
+# Two timed moves a search agent, not three: on a slow host all phases
+# took 563.5 s with three, near the 600 s at which earlier phases are cut.
+HOST_AZ_SIMS, HOST_AZ_MOVES = 128, 2
 
 # The bound.  Bytes: HBM at 3.35e12 B/s (NVIDIA's H100 SXM data sheet).
 # Operations: the machine instructions of the kernel's ply loop, read from
@@ -1216,6 +1239,170 @@ def phase_env_api(smi: str, gen: torch.Generator) -> None:
                     "seconds": time.perf_counter() - t0}))
 
 
+def host_game(agents: dict, ab_seat: int, record: dict) -> int:
+    """One game on the port's board between ``agents`` (seat -> host agent),
+    observations by ``observe_np``: every action legal; appends the ms of
+    each move to ``record["alphabeta"]`` or ``record["agent"]``, and each of
+    the agent's positions to ``record["positions"]``.  Returns the winner
+    (0 if capped)."""
+    from gobblet_rl_torch.board import Board
+    from gobblet_rl_torch.core import observe
+
+    board, player = Board(), 0
+    for _ in range(HOST_MAX_PLIES):
+        grid = board._grid()
+        obs, mask = observe.observe_np(grid, player, player)
+        w0 = time.perf_counter()
+        action = agents[player].compute_action(obs, mask)
+        record["alphabeta" if player == ab_seat else "agent"].append(
+            1e3 * (time.perf_counter() - w0))
+        check(mask[action] == 1, f"host agents: action {action} legal")
+        if player != ab_seat:
+            record["positions"].append((obs, mask, grid, player, action))
+        board.play_turn(player, action)
+        winner = board.check_for_winner()
+        if winner:
+            return winner
+        player = 1 - player
+    return 0
+
+
+def phase_host_agents(smi: str, gen: torch.Generator) -> None:
+    """21. the host surface's agents on the card."""
+    from gobblet_rl_torch import zoo
+    from gobblet_rl_torch.core import observe, rules_np
+    from gobblet_rl_torch.examples.example_alphazero import SearchAgentPolicy
+    from gobblet_rl_torch.native import engine
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.policies import AlphaBetaGobbletPolicy
+    from gobblet_rl_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    dev = gen.device
+
+    # the native engine against the rules on the depth-2 tree
+    eng = engine.NativeEngine()
+    boards = {}
+    root = rules_np.empty_board()
+    for a1 in range(54):
+        b1 = rules_np.apply_action(root, 0, a1)
+        for a2 in np.flatnonzero(rules_np.legal_mask(b1, 1)):
+            b2 = rules_np.apply_action(b1, 1, int(a2))
+            boards[b2.tobytes()] = b2
+    for board in boards.values():
+        eng.board[:] = board.reshape(27)
+        for player in (0, 1):
+            check(np.array_equal(eng.legal_mask(player), rules_np.legal_mask(board, player)),
+                  "native engine: legal mask == rules_np on the depth-2 tree")
+        check(eng.winner() == rules_np.line_winner(board),
+              "native engine: winner == rules_np on the depth-2 tree")
+    check(len(boards) > 2500, f"native engine: {len(boards)} boards in the depth-2 tree")
+    wins0, winners = eng.play_match(200, 2, 0)
+    decided = int((winners != 0).sum())
+    check(decided > 0 and wins0 / decided > 0.9,
+          f"native engine: greedy-2 wins {wins0} of {decided} decided games > 0.9")
+    native_s = time.perf_counter() - t0
+
+    # the DQN and PPO host agents against alpha-beta, card against CPU
+    agents_line = {}
+    for name in ("dqn_greedy", "ppo_league"):
+        card = zoo.host_agent(name, seed=0, device=dev)
+        record = {"agent": [], "alphabeta": [], "positions": []}
+        results = []
+        for ab_seat in (1, 0):
+            for g in range(HOST_GAMES_PER_SEAT):
+                ab = AlphaBetaGobbletPolicy(depth=HOST_AB_DEPTH, seed=100 * ab_seat + g)
+                seats = {ab_seat: ab, 1 - ab_seat: card}
+                results.append(host_game(seats, ab_seat, record) * (1 if ab_seat else -1))
+        net, _, entry = zoo.load(name, device="cpu")
+        cpu_agent = zoo.host_agent(name, seed=0, device="cpu")
+        positions = record["positions"]
+        grids = torch.from_numpy(np.stack([p[2] for p in positions], -1))
+        players = torch.tensor([p[3] for p in positions], dtype=torch.int32)
+        with torch.no_grad():
+            out = net(bc.features_lm(grids, players).t())
+        values = (out[0] if entry["family"] == "ppo" else out).float().numpy()
+        masks = np.stack([p[1] for p in positions]).astype(bool)
+        scale = np.abs(np.where(masks, values, 0)).max(1)
+        top2 = np.sort(np.where(masks, values, -np.inf), 1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * HOST_TOL * scale
+        same = [cpu_agent.compute_action(p[0], p[1]) == p[4] for p in positions]
+        compared = int(clear.sum())
+        check(all(s for s, c in zip(same, clear) if c),
+              f"host agents: {name} on the card == on the CPU where the values are apart")
+        agents_line[name] = {
+            "games": len(results), "agent_wins": sum(r > 0 for r in results),
+            "alphabeta_wins": sum(r < 0 for r in results),
+            "capped": sum(r == 0 for r in results), "moves": len(positions),
+            "agent_ms_per_move_median": statistics.median(record["agent"]),
+            "alphabeta_ms_per_move_median": statistics.median(record["alphabeta"]),
+            "cpu_compared_positions": compared, "cpu_same_all_positions": int(sum(same))}
+
+    # the AlphaZero host agent and SearchAgentPolicy: 1 warm-up, timed moves
+    # (the opening, then the positions after 1, 2 and 3 plies)
+    board, player = rules_np.empty_board(), 0
+    az_positions = []
+    for a in (49, 0, 20, None):
+        az_positions.append(observe.observe_np(board, player, player))
+        if a is not None:
+            board, player = rules_np.apply_action(board, player, a), 1 - player
+    net, _, entry = zoo.load("alphazero_gumbel32", device=dev)
+    az_agents = {   # the host agent at the manifest's simulations
+        "host_agent": zoo.host_agent("alphazero_gumbel32", seed=0, device=dev),
+        "search_agent": SearchAgentPolicy(net, num_sims=HOST_AZ_SIMS, seed=0, device=dev),
+    }
+    az_ms = {}
+    for key, agent in az_agents.items():
+        az_ms[key] = []
+        for obs, mask in az_positions[:1 + HOST_AZ_MOVES]:
+            w0 = time.perf_counter()
+            action = agent.compute_action(obs, mask)
+            az_ms[key].append(1e3 * (time.perf_counter() - w0))
+            check(mask[action] == 1, f"host agents: {key} action legal")
+        az_ms[key] = az_ms[key][1:]
+    host_ms = statistics.median(az_ms["search_agent"])
+
+    # one profiled SearchAgentPolicy move, through the port's trace helper
+    # (read from the Chrome trace: key_averages() takes tens of seconds on
+    # the ~10^5 events of a 128-simulation move)
+    obs, mask = az_positions[-1]
+    with tempfile.TemporaryDirectory() as logdir:
+        w0 = time.perf_counter()
+        with profiling.trace(logdir):
+            with profiling.annotate("host_search_move"):
+                action = az_agents["search_agent"].compute_action(obs, mask)
+        trace_s = time.perf_counter() - w0
+        files = sorted(Path(logdir).glob("trace-*.json"))
+        check(len(files) == 1, "host agents: the trace wrote one file")
+        trace_mib = files[0].stat().st_size / 2**20
+        events = json.loads(files[0].read_text())["traceEvents"]
+    check(mask[action] == 1, "host agents: the profiled move is legal")
+    check(any(e.get("name") == "host_search_move" for e in events),
+          "host agents: the trace names the annotation")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_ms = sum(e["dur"] for e in kernels) / 1e3
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e["name"][:80]] += e["dur"] / 1e3
+    profile_line = {
+        "device_kernel_ms": busy_ms if busy_ms > 0 else "not measured",
+        "device_kernels": len(kernels),
+        "device_idle_share": 1 - busy_ms / host_ms if busy_ms > 0 else "not measured",
+        "unprofiled_move_ms": host_ms, "trace_s": trace_s, "trace_mib": trace_mib,
+        "top_kernels_ms": dict(by_name.most_common(6)),
+    }
+    log(json.dumps({"metric": "host_agents", "device": smi,
+                    "native_depth2_boards": len(boards), "native_greedy2_vs_random":
+                    {"wins_p0": wins0, "decided": decided, "games": 200},
+                    "native_s": native_s, "alphabeta_depth": HOST_AB_DEPTH,
+                    "agents": agents_line, "az_host_agent_sims": entry["eval"]["num_sims"],
+                    "search_agent_sims": HOST_AZ_SIMS,
+                    "az_host_agent_ms": az_ms["host_agent"],
+                    "search_agent_ms": az_ms["search_agent"],
+                    "profiled_move": profile_line,
+                    "seconds": time.perf_counter() - t0}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card",
@@ -1415,6 +1602,9 @@ def main() -> int:
     phase_value_search(smi, gen)
     phase_tournament(smi, gen)
     phase_env_api(smi, gen)
+
+    # 21. the host surface's agents; no kernel ------------------------------
+    phase_host_agents(smi, gen)
 
     log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "

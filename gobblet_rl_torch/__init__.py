@@ -25,10 +25,12 @@ Layout:
   lane-major trees, with batch-first entry points
 * ``policies/greedy_jax.py``  the batched depth-1/2 greedy opponent;
   ``policies/value_search.py`` the learned-eval depth-1/2 search (the
-  ``+search2`` entrants); ``policies/greedy.py`` the host greedy
+  ``+search2`` entrants); ``policies/greedy.py``, ``random_policy.py``
+  and ``alphabeta.py`` the host greedy, random and alpha-beta policies
 * ``env/vector.py``        the batch-first vector env and its rollout
-* ``native/engine.py``     the exact solver and alpha-beta expert of
-  ``csrc/gobblet.cpp``, built by ``g++`` at first use
+* ``native/engine.py``     ``NativeEngine`` (the single-env C++ rules,
+  greedy, playouts and matches), the exact solver and the alpha-beta
+  expert of ``csrc/gobblet.cpp``, built by ``g++`` at first use
 * ``train/replay.py``      the state-snapshot replay ring and the n-step
   ``Segment`` folds
 * ``train/dqn.py``         the fused DQN actor-learner (random, greedy, self
@@ -42,18 +44,23 @@ Layout:
 * ``eval/tournament.py``   the random, greedy, DQN, PPO, alpha-beta and
   solver policies, ``play_match``, ``defense_audit``, ``round_robin``
 * ``zoo/``                 the committed ``dqn``, ``alphazero`` and ``ppo``
-  agents, read from the JAX package's blobs by a msgpack reader of its own
-* ``examples/``            the DQN, AlphaZero, PPO and tournament command
-  lines
-* ``board.py``, ``render/``, ``env/aec.py``, ``gobblet_v1.py``  the host
-  surface: the PettingZoo AEC env and its renders (host only: they need
-  ``pettingzoo``, ``gymnasium`` and, to draw, ``pygame``)
+  agents, read from the JAX package's blobs by a msgpack reader of its own,
+  and ``host_agent``, one of them at B=1 behind the reference observation
+* ``utils/``               ``profiling`` (``trace``, ``annotate``,
+  ``Throughput``) and ``helpers``
+* ``examples/``            the DQN, AlphaZero (with ``SearchAgentPolicy`` and
+  the ``--watch`` modes; DQN's play mode), PPO and tournament command lines,
+  and the host demos ``example_basic``, ``example_greedy``,
+  ``example_record_game`` and ``example_user_input``
+* ``board.py``, ``render/``, ``env/aec.py``, ``gobblet_v1.py``,
+  ``interactive/``, ``adapters/``  the host surface: the PettingZoo AEC env,
+  its renders and GIF recorder, ``GameSession``, the pygame manual policy
+  and the Tianshou and RLlib adapters.  The env, the manual policy, the
+  host demos and the watch and play modes need ``pettingzoo``,
+  ``gymnasium`` and, to draw, ``pygame``; the adapters need their
+  framework.
 
-Not ported yet: the rest of the host surface (``interactive/``,
-``render/gif.py``, ``adapters/``, ``utils/``, the host random and
-alpha-beta policies, ``NativeEngine``, ``zoo.host_agent``, the other
-command lines and the ``--watch`` modes) and parallelism (``ROADMAP.md``
-§A, A.17 and A.16).
+Not ported yet: parallelism (``parallel/``; ``ROADMAP.md`` §A, A.16).
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,9 @@
-"""AlphaZero self-play training entry point of the torch port.
+"""AlphaZero self-play training and watch entry point of the torch port.
 
     python -m gobblet_rl_torch.examples.example_alphazero --search gumbel --num-sims 32
 
-Port of ``gobblet_rl_tpu/examples/example_alphazero.py`` in training mode,
-with the same flags; ``--device`` defaults to ``cuda``.  History goes to
+Port of ``gobblet_rl_tpu/examples/example_alphazero.py``, with the same
+flags; ``--device`` defaults to ``cuda``.  History goes to
 ``<logdir>/gobblet_rl_torch/alphazero/history.jsonl``;
 ``--checkpoint-dir`` saves and resumes the net, optimizer and env batch,
 ``--full-resume-dir`` also the generator, so a preempted run relaunched
@@ -12,14 +12,23 @@ agent plays ``--eval-games`` games against random, greedy-1 and greedy-2,
 and with ``--eval-alphabeta-depth > 0`` against the native alpha-beta
 expert at that depth.
 
-Not ported yet: ``--watch`` (one rendered game on the host surface,
-ROADMAP A.17); it raises.
+``--watch`` skips training and renders one game of the search agent
+(``--zoo``, ``--checkpoint-dir`` or a fresh net; PUCT at ``--eval-sims``
+simulations on ``--device``) against the greedy, alpha-beta or random
+``--opponent`` on the host AEC env.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import numpy as np
+import torch
+
+from gobblet_rl_torch.device import resolve_device
+from gobblet_rl_torch.policies.greedy import board_from_observation
+from gobblet_rl_torch.search import MCTSConfig, mcts_policy
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -47,8 +56,8 @@ def get_parser() -> argparse.ArgumentParser:
                         help="post-training tournament games vs each baseline (0 to skip)")
     parser.add_argument("--eval-sims", type=int, default=128)
     parser.add_argument("--watch", default=False, action="store_true",
-                        help="skip training; render one game on the host surface (not "
-                        "ported yet)")
+                        help="skip training; render one game of the (loaded or fresh) agent "
+                        "vs --opponent on the AEC env")
     parser.add_argument("--render_mode", type=str, default="text",
                         choices=["human", "text", "text_full", "rgb_array"])
     parser.add_argument("--opponent", type=str, default="greedy",
@@ -64,13 +73,73 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
+class SearchAgentPolicy:
+    """Host-env adapter: ``compute_action(obs (3, 3, 13), mask[54])`` by the
+    noise-free PUCT search at B=1 on ``device`` (``None``: the CUDA card,
+    or raise), ``GameSession``-compatible like ``GreedyGobbletPolicy``.
+    ``net`` is moved to ``device``.  At the default temperature 0 the move
+    is deterministic; the generator seeded with ``seed`` feeds any draw."""
+
+    def __init__(self, net, num_sims: int = 128, seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        self._pol = mcts_policy(net.to(self.device), MCTSConfig(num_sims=num_sims))
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(seed)
+
+    def compute_action(self, obs, mask):
+        board, agent = board_from_observation(np.asarray(obs))
+        lane_major = torch.from_numpy(board).to(self.device)[..., None]   # [3, 9, 1]
+        current = torch.tensor([agent], dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            return int(self._pol(self._generator, lane_major, current)[0])
+
+
+def watch(args, net=None):
+    """Render one game: the search agent against the greedy, alpha-beta or
+    random opponent on the host AEC env."""
+    from gobblet_rl_torch import gobblet_v1
+    from gobblet_rl_torch.interactive.session import GameSession
+    from gobblet_rl_torch.policies import (
+        AlphaBetaGobbletPolicy,
+        GreedyGobbletPolicy,
+        RandomAdmissiblePolicy,
+    )
+    from gobblet_rl_torch.train import alphazero
+    from gobblet_rl_torch.train import checkpoint as ckpt
+
+    if net is None and args.zoo:
+        from gobblet_rl_torch import zoo
+
+        net, _, _ = zoo.load(args.zoo, expect_family="alphazero", device=args.device)
+    if net is None:
+        generator = torch.Generator(device=args.device)
+        generator.manual_seed(args.seed)
+        st = alphazero.init_alphazero(alphazero.AZConfig(model=args.model), generator)
+        if args.checkpoint_dir:
+            ckpt.restore_az(args.checkpoint_dir, st)
+        net = st.net
+    agent = SearchAgentPolicy(net, num_sims=args.eval_sims, seed=args.seed, device=args.device)
+    if args.opponent == "greedy":
+        opponent = GreedyGobbletPolicy(depth=2)
+    elif args.opponent == "alphabeta":
+        opponent = AlphaBetaGobbletPolicy(depth=6, seed=args.seed)
+    else:
+        opponent = RandomAdmissiblePolicy(seed=args.seed)
+    agents = ["player_1", "player_2"]
+    seat = agents[args.agent_id - 1]
+    env = gobblet_v1.env(render_mode=args.render_mode, args=args)
+    session = GameSession(env, {a: (agent if a == seat else opponent) for a in agents})
+    while not session.episode_rewards:
+        session.collect(n_step=1)
+    print(f"Final rewards: {session.episode_rewards}")
+
+
 def main(args=None):
-    """Train (and evaluate); returns ``(AZState, history)``."""
+    """Train (and evaluate); returns ``(AZState, history)``.  With
+    ``--watch``, renders one game instead and returns ``None``."""
     args = args or get_parser().parse_known_args()[0]
     if args.watch:
-        raise NotImplementedError(
-            "--watch plays on the host surface (the AEC env, rendering, the host search "
-            "agent: ROADMAP A.17), not ported yet")
+        return watch(args)
     from gobblet_rl_torch.eval import tournament
     from gobblet_rl_torch.train import alphazero
     from gobblet_rl_torch.train.logging import make_logger

@@ -1,14 +1,17 @@
-"""DQN training entry point of the torch port.
+"""DQN training, watch and play entry point of the torch port.
 
     python -m gobblet_rl_torch.examples.example_dqn --opponent greedy --both-seats
 
-Port of ``gobblet_rl_tpu/examples/example_dqn.py`` in training mode, with
-the same flags; ``--device`` defaults to ``cuda``.  History goes to
+Port of ``gobblet_rl_tpu/examples/example_dqn.py``, with the same flags;
+``--device`` defaults to ``cuda``.  History goes to
 ``<logdir>/gobblet_rl_torch/dqn/history.jsonl`` and a checkpoint of the
 train state to ``.../dqn/ckpt`` after every epoch; ``--full-resume-dir``
 makes a preempted run, relaunched with the same flags, continue bit for
-bit.  ``--watch`` and ``--cpu-players 1`` need the host surface (the AEC
-env, rendering and the manual policy), which is not ported yet.
+bit.  ``--watch`` renders one game of the Q-net (``--zoo``,
+``--resume-path`` or a fresh net, on ``--device``) against the random or
+greedy ``--opponent`` on the host AEC env; ``--cpu-players 1`` plays it
+against a human through the pygame manual policy (``--record`` writes
+``game.gif``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+
+import numpy as np
+import torch
+
+from gobblet_rl_torch.models.mlp import masked_argmax
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -76,7 +84,7 @@ def get_parser() -> argparse.ArgumentParser:
                         help="train one net over alternating per-env seats")
     parser.add_argument("--defense-bc-weight", type=float, default=0.0,
                         help="> 0 adds solver-supervised defense distillation "
-                        "(not ported yet)")
+                        "(train/defense.py)")
     parser.add_argument("--opponent", type=str, default="random",
                         choices=["random", "greedy", "self", "mixed"],
                         help="training opponent; 'mixed' draws random/greedy/"
@@ -151,12 +159,96 @@ def train_agent(args):
     return ts, history
 
 
+class QPolicy:
+    """Host-env adapter of a Q-net: ``compute_action(obs (3, 3, 13),
+    mask[54])`` is the masked argmax of the Q-values of the observation in
+    ``(channel, cell)`` order, the layout the net was trained on."""
+
+    def __init__(self, net):
+        self.net = net
+        self.device = next(net.parameters()).device
+
+    def compute_action(self, obs, mask):
+        flat = np.transpose(np.asarray(obs), (2, 0, 1)).reshape(1, -1)   # (channel, cell)
+        with torch.no_grad():
+            q = self.net(torch.from_numpy(np.ascontiguousarray(flat, np.int8)).to(self.device))
+        mask = torch.from_numpy(np.asarray(mask, bool)).to(self.device)[None]
+        return int(masked_argmax(q, mask)[0])
+
+
+def load_net(args):
+    """The Q-net of ``--zoo``, or a fresh one (initialised from seed 0) on
+    ``--device`` with ``--resume-path``'s parameters if given."""
+    from gobblet_rl_torch.train import checkpoint as ckpt
+    from gobblet_rl_torch.train import dqn
+
+    if args.zoo:
+        from gobblet_rl_torch import zoo
+
+        return zoo.load(args.zoo, expect_family="dqn", device=args.device)[0]
+    net = dqn.make_net(make_config(args), device=args.device)
+    generator = torch.Generator(device=args.device)
+    generator.manual_seed(0)
+    net.reset_parameters(generator)
+    if args.resume_path:
+        ckpt.load_params(args.resume_path, net)
+    return net
+
+
+def watch(args, net=None):
+    """Render a game of the Q-net against its opponent on the host env."""
+    from gobblet_rl_torch import gobblet_v1
+    from gobblet_rl_torch.interactive.session import GameSession
+    from gobblet_rl_torch.policies import GreedyGobbletPolicy, RandomAdmissiblePolicy
+
+    learner = QPolicy(net if net is not None else load_net(args))
+    opponent = (GreedyGobbletPolicy(depth=2) if args.opponent == "greedy"
+                else RandomAdmissiblePolicy(seed=args.seed))
+    agents = ["player_1", "player_2"]
+    learner_agent = agents[args.agent_id - 1]
+    env = gobblet_v1.env(render_mode=args.render_mode, args=args)
+    policies = {a: (learner if a == learner_agent else opponent) for a in agents}
+    session = GameSession(env, policies)
+    while not session.episode_rewards:  # the session resets itself at the game's end
+        session.collect(n_step=1, render=args.render if args.render_mode == "human" else 0)
+    print(f"Final rewards: {session.episode_rewards}")
+
+
+def play(args):
+    """A human (``--player``) against the Q-net, through the pygame manual
+    policy; ``--record`` writes the game to ``game.gif``."""
+    from gobblet_rl_torch import gobblet_v1
+    from gobblet_rl_torch.interactive.session import GameSession
+
+    recorder = None
+    if args.record:
+        from gobblet_rl_torch.render.gif import GIFRecorder
+
+        recorder = GIFRecorder()
+    cpu = QPolicy(load_net(args))
+    env = gobblet_v1.env(render_mode="human", args=args)
+    agents = ["player_1", "player_2"]
+    session = GameSession(env, {a: cpu for a in agents})
+    manual = gobblet_v1.ManualGobbletPolicy(env, args.player, recorder)
+    while not session.episode_rewards:
+        obs, _, term, trunc, _ = env.last()
+        if term or trunc:
+            env.step(None)
+            continue
+        if env.agent_selection == agents[args.player]:
+            session.collect_result(manual(obs, env.agent_selection))
+        else:
+            session.collect(n_step=1)
+    if recorder is not None:
+        recorder.end_recording(env.unwrapped.screen)
+
+
 def main(args=None):
     args = args or get_args()
-    if args.watch or args.cpu_players == 1:
-        raise NotImplementedError(
-            "--watch and --cpu-players 1 play on the host surface (the AEC env, "
-            "rendering, the manual policy: ROADMAP A.17), not ported yet")
+    if args.watch:
+        return watch(args)
+    if args.cpu_players == 1:
+        return play(args)
     return train_agent(args)
 
 

@@ -3,8 +3,7 @@ host.
 
 Port of ``gobblet_rl_tpu/gobblet_v1.py``.  It imports ``pettingzoo`` and
 ``gymnasium``, which the card's path never needs.  ``ManualGobbletPolicy``
-(the pygame manual policy) is not ported yet: reading it raises
-``NotImplementedError``.
+(the pygame manual policy) is imported when it is first read.
 """
 
 from gobblet_rl_torch.env.aec import env, parallel_env, raw_env
@@ -15,7 +14,7 @@ __all__ = ["env", "parallel_env", "raw_env", "GreedyGobbletPolicy", "ManualGobbl
 
 def __getattr__(name):
     if name == "ManualGobbletPolicy":
-        raise NotImplementedError(
-            "ManualGobbletPolicy plays on the host surface (interactive/, ROADMAP A.17), "
-            "not ported yet")
+        from gobblet_rl_torch.interactive.manual_policy import ManualGobbletPolicy
+
+        return ManualGobbletPolicy
     raise AttributeError(f"module 'gobblet_rl_torch.gobblet_v1' has no attribute {name!r}")

@@ -10,6 +10,7 @@ carries the weights across with :mod:`gobblet_rl_torch.models.convert`:
     from gobblet_rl_torch import zoo
     net, params, meta = zoo.load("alphazero_gumbel32")   # ConvActorCritic on the card
     policy = zoo.policy("alphazero_gumbel32")            # eval/tournament policy
+    agent = zoo.host_agent("alphazero_gumbel32")         # GameSession-compatible
 """
 
 from __future__ import annotations
@@ -19,10 +20,15 @@ import os
 from pathlib import Path
 from typing import Any, Dict, Tuple
 
+import numpy as np
+import torch
+
+from gobblet_rl_torch.device import resolve_device
 from gobblet_rl_torch.eval import tournament
 from gobblet_rl_torch.models import actor_critic as ac
 from gobblet_rl_torch.models.convert import actor_critic_params_from_flax, qnet_params_from_flax
 from gobblet_rl_torch.models.mlp import QNet
+from gobblet_rl_torch.policies.greedy import board_from_observation
 from gobblet_rl_torch.train import alphazero
 from gobblet_rl_torch.zoo import flax_msgpack
 
@@ -101,3 +107,26 @@ def policy(name: str, device=None, **overrides):
     if entry["family"] == "ppo":
         return tournament.ppo_policy(net, **overrides)
     return tournament.dqn_policy(net, **overrides)
+
+
+def host_agent(name: str, seed: int = 0, device=None, **overrides):
+    """A ``compute_action(obs, mask)`` agent for the host AEC env
+    (``GameSession``-compatible, like ``GreedyGobbletPolicy``): the zoo
+    policy at B=1 on ``device`` (``None``: the CUDA card, or raise),
+    behind the reference's (3, 3, 13) observation.  A ``torch.Generator``
+    seeded with ``seed`` feeds the policy's draws; the zoo's evaluation
+    policies draw nothing unless ``overrides`` ask for it (``eps`` > 0,
+    ``sample=True``)."""
+    dev = resolve_device(device)
+    pol = policy(name, device=dev, **overrides)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
+
+    class _ZooAgent:
+        def compute_action(self, obs, mask):
+            board, agent = board_from_observation(np.asarray(obs))
+            lane_major = torch.from_numpy(board).to(dev)[..., None]          # [3, 9, 1]
+            current = torch.tensor([agent], dtype=torch.int32, device=dev)
+            return int(pol(generator, lane_major, current)[0])
+
+    return _ZooAgent()

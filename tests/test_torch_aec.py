@@ -264,6 +264,11 @@ def test_board_facade_equals_jax():
 
 
 def test_manual_policy_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A.17"):
-        gobblet_v1.ManualGobbletPolicy
-    assert "GreedyGobbletPolicy" in gobblet_v1.__all__
+    """Ported since: ``ManualGobbletPolicy`` is the lazy attribute of JAX's
+    ``gobblet_v1``, the policy of ``interactive/manual_policy.py``."""
+    from gobblet_rl_torch.interactive.manual_policy import ManualGobbletPolicy
+
+    assert gobblet_v1.ManualGobbletPolicy is ManualGobbletPolicy
+    assert {"GreedyGobbletPolicy", "ManualGobbletPolicy"} <= set(gobblet_v1.__all__)
+    with pytest.raises(AttributeError):
+        gobblet_v1.NoSuchPolicy

@@ -78,9 +78,14 @@ def test_tables_equal_jax(name):
 def test_package_imports_no_jax():
     """Importing the whole port pulls in neither jax nor the JAX package,
     nor msgpack or orbax, which the card's machine lacks (a subprocess:
-    this test process already imported them)."""
+    this test process already imported them).  The framework adapters
+    import under the stubs of ``tests/framework_stubs.py`` (tianshou and
+    ray are not installed)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "from tests import framework_stubs\n"
+        "framework_stubs.install_tianshou_stub()\n"
+        "framework_stubs.install_rllib_stub()\n"
         "import gobblet_rl_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'gobblet_rl_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -92,20 +97,29 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 40  # every module was imported
+    assert int(out.stdout.strip()) >= 70  # every module was imported
 
 
+# the modules that run only on a host with pettingzoo, gymnasium, pygame or
+# PIL (the AEC env, its renders and command lines, the manual policy), or
+# with tianshou or ray (the adapters)
 HOST_ONLY = ("gobblet_rl_torch.env.aec", "gobblet_rl_torch.gobblet_v1",
-             "gobblet_rl_torch.render.surface")
+             "gobblet_rl_torch.render.surface", "gobblet_rl_torch.interactive.manual_policy",
+             "gobblet_rl_torch.adapters.tianshou_adapter",
+             "gobblet_rl_torch.adapters.rllib_adapter",
+             "gobblet_rl_torch.examples.example_basic", "gobblet_rl_torch.examples.example_greedy",
+             "gobblet_rl_torch.examples.example_record_game",
+             "gobblet_rl_torch.examples.example_user_input")
 
 
 def test_card_path_needs_no_host_package():
-    """With pettingzoo, gymnasium and pygame blocked (the card's machine has
-    none of them), every module of the port but the host-only ones imports,
-    and so does chip_smoke.py; the host-only ones do need them."""
+    """With pettingzoo, gymnasium, pygame and PIL blocked (the card's
+    machine has none of them), every module of the port but the host-only
+    ones imports, and so does chip_smoke.py; the host-only ones do need
+    them."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "for name in ('pettingzoo', 'gymnasium', 'pygame'):\n"
+        "for name in ('pettingzoo', 'gymnasium', 'pygame', 'PIL'):\n"
         "    sys.modules[name] = None\n"
         f"host_only = {HOST_ONLY!r}\n"
         "import gobblet_rl_torch as p\n"
@@ -124,7 +138,7 @@ def test_card_path_needs_no_host_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 50
+    assert int(out.stdout.strip()) >= 59
 
 
 # the JAX package's native library, by path or by its build: the port
@@ -144,7 +158,7 @@ def test_source_scan_no_jax_imports():
     for bad in ('ROOT / "gobblet_rl_tpu" / "native"', "gobblet_rl_tpu/native/libgobblet.so",
                 'subprocess.run(["make", "-C", csrc])', "os.system('make -C csrc')"):
         assert BORROWED_LIBRARY.search(bad), bad
-    assert len(files) >= 41
+    assert len(files) >= 71
 
 
 def test_device_none_means_cuda():

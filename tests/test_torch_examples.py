@@ -78,16 +78,25 @@ def test_cli_trains_and_resumes(tmp_path):
     assert history3 == [] and ts3.grad_steps == ts2.grad_steps
 
 
-def test_cli_config_and_host_modes():
+def test_cli_config_and_host_modes(monkeypatch):
+    """The config from the flags; ``--watch`` and ``--cpu-players 1`` go to
+    the host surface's watch and play modes (tests/test_torch_host_*.py run
+    them), not to training."""
     args = example_dqn.get_parser().parse_args(
         ["--step-per-collect", "8", "--update-per-step", "0.25", "--agent-id", "1"])
     config = example_dqn.make_config(args)
     assert args.device == "cuda"
     assert config.update_per_collect == 2 and config.learner_player == 0
     assert config.segment_len == 8 and config.opponent == "random"
-    for flag in (["--watch"], ["--cpu-players", "1"]):
-        with pytest.raises(NotImplementedError, match="host surface"):
-            example_dqn.main(example_dqn.get_parser().parse_args(flag))
+    calls = []
+    monkeypatch.setattr(example_dqn, "watch", lambda a: calls.append(("watch", a)))
+    monkeypatch.setattr(example_dqn, "play", lambda a: calls.append(("play", a)))
+    monkeypatch.setattr(example_dqn, "train_agent", lambda a: calls.append(("train", a)))
+    for flag, mode in ((["--watch"], "watch"), (["--cpu-players", "1"], "play"), ([], "train")):
+        parsed = example_dqn.get_parser().parse_args(flag)
+        example_dqn.main(parsed)
+        assert calls[-1] == (mode, parsed)
+    assert len(calls) == 3
 
 
 def az_args(tmp_path, *extra):
@@ -115,15 +124,17 @@ def test_alphazero_cli_trains_and_evaluates(tmp_path, capsys, search):
 
 @pytest.mark.parametrize("flags,item", [(["--watch"], "A.17"),
                                         (["--eval-alphabeta-depth", "2"], "A.14")])
-def test_alphazero_cli_unported_modes_raise(flags, item, tmp_path, capsys):
-    """``--watch`` waits for the host surface (A.17) and raises;
-    ``--eval-alphabeta-depth``, which waited for the native alpha-beta
-    (A.14), now evaluates against it."""
+def test_alphazero_cli_unported_modes_raise(flags, item, tmp_path, capsys, monkeypatch):
+    """The modes that once waited: ``--watch``, which waited for the host
+    surface (A.17), now renders one game instead of training
+    (tests/test_torch_host_watch.py plays it); ``--eval-alphabeta-depth``,
+    which waited for the native alpha-beta (A.14), evaluates against it."""
     args = example_alphazero.get_parser().parse_args(flags)
     assert args.device == "cuda" and args.search == "puct"
     if item == "A.17":
-        with pytest.raises(NotImplementedError, match=item):
-            example_alphazero.main(args)
+        calls = []
+        monkeypatch.setattr(example_alphazero, "watch", lambda a: calls.append(a))
+        assert example_alphazero.main(args) is None and calls == [args]
         return
     example_alphazero.main(az_args(tmp_path, *flags, "--search", "gumbel", "--iterations", "1",
                                    "--eval-games", "4"))
