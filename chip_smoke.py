@@ -57,7 +57,7 @@ its plain PyTorch version:
     payload equals the saved one, tensor for tensor, and every segment's
     targets pass the checks above;
 14. the zoo agent ``alphazero_gumbel32`` on the card: logits and values on
-    4,096 positions against the CPU's, then 256 games of at most 50 plies
+    4,096 positions against the CPU's, then 128 games of at most 50 plies
     against the depth-2 greedy with colours swapped at the manifest's 128
     simulations (win rate at least 0.85);
 15. the PPO iteration of ``bench.py`` at full width (8,192 envs, segment
@@ -119,9 +119,23 @@ its plain PyTorch version:
     ``SearchAgentPolicy`` at 128 simulations, 1 warm-up and 2 timed moves
     each; one ``SearchAgentPolicy`` move profiled through
     ``utils.profiling.trace`` inside ``annotate("host_search_move")`` (the
-    trace file names the annotation; kernels, device ms, idle share).
+    trace file names the annotation; kernels, device ms, idle share);
+22. the parallel slice (``gobblet_rl_torch/parallel``; no speed-up is
+    claimed: one card).  World size 1 over NCCL: the sharded DQN iteration
+    at phase 5's width and AZ at 256 envs and segment 16 equal to the
+    unsharded ones from one seed (params, ring, env state, loss:
+    ``torch.equal``), each timed, and the gradient sync's ms an update by
+    CUDA events; the sharded PPO at phase 15's width timed (loss finite,
+    params moved); PPO card against CPU (a gloo rank) at 64 envs on exact
+    linear nets under one set of draws, params within 1e-5.  Two gloo
+    ranks on the one card (NCCL refuses two ranks on one device):
+    ``launch_local`` of the DQN at phase 5's width split over them, AZ and
+    PPO at 16 envs (one digest each), and a TP forward and SGD step of the
+    dueling ``QNet`` at batch 4,096 within 1e-5 of the replicated net, and
+    the census of one DP iteration (only all-reduces, at most updates x
+    (param bytes + 4096)); the launches run at once, beside the AZ check.
 
-Phases 7-21 each print one JSON line with the card's name and power limit
+Phases 7-22 each print one JSON line with the card's name and power limit
 and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
@@ -131,6 +145,7 @@ Any failed check raises, so the exit code is non-zero.  The last line is
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import json
 import math
@@ -159,10 +174,12 @@ AZ = dict(search="gumbel_lm", num_sims=32, num_envs=2048, segment_len=48, model=
           channels=64, blocks=2, batch_size=2048, updates_per_iter=8)
 SEARCH_PARITY_B, SEARCH_MIN_SAME = 1024, 0.99
 # the resume checks and the zoo match are cut to keep the script well
-# inside its time on a slow host: segment 16, and 256 games of at most 50
+# inside its time on a slow host: segment 16, and 128 games of at most 50
 # plies (the launch-bound match runs until its last game ends; a game still
-# open at the cap counts as undecided, outside the win rate)
-AZ_RESUME_ENVS, AZ_RESUME_SEGMENT, AZ_ZOO_GAMES, AZ_ZOO_MAX_PLIES = 256, 16, 256, 50
+# open at the cap counts as undecided, outside the win rate).  The match
+# went from 256 games to 128 when the parallel phase took all phases to
+# 626.2 s on a slow host.
+AZ_RESUME_ENVS, AZ_RESUME_SEGMENT, AZ_ZOO_GAMES, AZ_ZOO_MAX_PLIES = 256, 16, 128, 50
 AZ_ZOO_MIN_WIN_RATE = 0.85
 # The PPO iteration of bench.py (bench.py:276-322), not cut.
 PPO = dict(num_envs=8192, segment_len=32, shared_policy=True, learner_player="both",
@@ -199,6 +216,21 @@ HOST_GAMES_PER_SEAT, HOST_MAX_PLIES, HOST_AB_DEPTH, HOST_TOL = 2, 60, 6, 2e-2
 # Two timed moves a search agent, not three: on a slow host all phases
 # took 563.5 s with three, near the 600 s at which earlier phases are cut.
 HOST_AZ_SIMS, HOST_AZ_MOVES = 128, 2
+# The parallel slice.  World size 1 over NCCL: phase 5's DQN, the AZ resume
+# checks' cut and phase 15's PPO, each against the unsharded iteration;
+# card against CPU for PPO at a small width on exact linear nets (a hidden
+# ReLU at its kink flips a row's gradient under float32 reordering, which
+# Adam inflates to ~lr).  Then two gloo ranks on the one card: the DQN at
+# phase 5's width split over them, AZ and PPO at launch_local's widths, a
+# TP forward and step of QNet and the census of one DP iteration.
+PAR_BACKEND, PAR_RANK_BACKEND = "nccl", "gloo"
+PAR_AZ = dict(AZ, num_envs=AZ_RESUME_ENVS, segment_len=AZ_RESUME_SEGMENT)
+PAR_PPO_SMALL = dict(num_envs=64, segment_len=8, shared_policy=True, learner_player="both",
+                     opponent="self", hidden_sizes=(), epochs_per_iter=2, minibatches=4, lr=1e-3)
+PAR_TOL, PAR_SYNC_REPEATS, PAR_TP_B = 1e-5, 20, 4096
+PAR_SMALL = {"az": 16, "ppo": 16}   # launch_local's JAX widths (tests/test_multihost.py:44)
+PAR_CENSUS = dict(num_envs=4096, buffer_size=65536, batch_size=1024, segment_len=4,
+                  update_per_collect=2, opponent="random")
 
 # The bound.  Bytes: HBM at 3.35e12 B/s (NVIDIA's H100 SXM data sheet).
 # Operations: the machine instructions of the kernel's ply loop, read from
@@ -1403,6 +1435,305 @@ def phase_host_agents(smi: str, gen: torch.Generator) -> None:
                     "seconds": time.perf_counter() - t0}))
 
 
+def trees_equal(a, b) -> bool:
+    """Leaf for leaf ``torch.equal`` of two sequences (plain values by ==)."""
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(a, b))
+
+
+def nets_equal(a: torch.nn.Module, b: torch.nn.Module) -> bool:
+    return trees_equal(a.state_dict().values(), b.state_dict().values())
+
+
+def exact_linear_ppo(dev: torch.device):
+    """(net, opponent) ``MLPActorCritic`` without a hidden layer, float32,
+    every weight a multiple of 2^-6 with a numerator in [-16, 16], on ``dev``
+    (the same weights on every device)."""
+    from gobblet_rl_torch.models import actor_critic as ac
+
+    rng = torch.Generator().manual_seed(1)
+    nets = []
+    for _ in range(2):
+        cpu = ac.MLPActorCritic(hidden_sizes=(), dtype=torch.float32, device="cpu")
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.copy_(torch.randint(-16, 17, p.shape, generator=rng) / 64)
+        net = ac.MLPActorCritic(hidden_sizes=(), dtype=torch.float32, device=dev)
+        net.load_state_dict(cpu.state_dict())
+        nets.append(net)
+    return nets
+
+
+def small_ppo_case():
+    """The injected draws and the start state of the card-vs-CPU PPO check,
+    numpy, from one seed."""
+    from gobblet_rl_torch.train import ppo
+
+    cfg = ppo.PPOConfig(**PAR_PPO_SMALL)
+    rng = np.random.default_rng(0)
+    L, B = cfg.segment_len, cfg.num_envs
+    noise = {k: rng.gumbel(size=(L, B, 54)).astype(np.float32) for k in ("act", "opp", "open")}
+    perms = [rng.permutation(L * B) for _ in range(cfg.epochs_per_iter)]
+    net, opp = exact_linear_ppo(torch.device("cpu"))
+    gen = torch.Generator().manual_seed(2)
+    env = ppo.init_env_state(cfg, ppo.make_opponent_fn(cfg, device="cpu"), opp, gen,
+                             cfg.learner_player)
+    return {"noise": noise, "perms": perms, "env": [x.numpy() for x in env]}
+
+
+def run_small_ppo(case, dev: torch.device) -> dict:
+    """One sharded PPO iteration (world size 1) on ``dev`` under the case's
+    draws; the params after it."""
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.parallel import mesh as mesh_mod
+    from gobblet_rl_torch.parallel import sharded_ppo
+    from gobblet_rl_torch.train import ppo
+
+    cfg = ppo.PPOConfig(**PAR_PPO_SMALL)
+    net, opp = exact_linear_ppo(dev)
+    it = sharded_ppo.make_sharded_ppo_iteration(cfg, mesh_mod.make_mesh(device=dev), dev)
+    env = bc.PlanesState(*(torch.from_numpy(x).to(dev) for x in case["env"]))
+    it(net, opp, ppo.make_optimizer(cfg, net), env, None, cfg.learner_player,
+       noise={k: torch.from_numpy(v).to(dev) for k, v in case["noise"].items()},
+       perms=[torch.from_numpy(p).to(dev) for p in case["perms"]])
+    return {k: v.detach().cpu() for k, v in net.state_dict().items()}
+
+
+def cpu_ppo_rank(rank, world, dev, case):
+    """The CPU side of the card-vs-CPU PPO check, on a gloo rank."""
+    return run_small_ppo(case, dev)
+
+
+def tp_census_rank(rank, world, dev, batch):
+    """On two ranks of one card: a TP forward and step of the dueling QNet
+    on a (1 x 2) mesh against the replicated net, then the census and the
+    layout of one DP iteration of the DQN on a (2 x 1) mesh."""
+    from gobblet_rl_torch.models.mlp import QNet
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.parallel import collective_audit as ca
+    from gobblet_rl_torch.parallel import mesh as mesh_mod
+    from gobblet_rl_torch.parallel import sharded_train
+    from gobblet_rl_torch.parallel import tensor_parallel as tp
+    from gobblet_rl_torch.train import dqn, replay
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    obs = (torch.rand((batch, 117), generator=gen, device=dev) < 0.2).to(torch.int8)
+    mask = torch.rand((batch, 54), generator=gen, device=dev) < 0.7
+    target = torch.randn((batch, 54), generator=gen, device=dev)
+    net = QNet(dueling=True, dtype=torch.float32, device=dev)
+    net.reset_parameters(gen)
+    tp_net = tp.shard_params_tp(net, mesh_mod.make_mesh(model_parallel=world, device=dev))
+    with torch.no_grad():
+        (q_tp, q_tp_ms), (q_rep, q_rep_ms) = timed(lambda: tp_net(obs), 3), timed(
+            lambda: net(obs), 3)
+    # SGD, so the params after the step differ as the gradients do (Adam's
+    # first step divides each by its own size)
+    step = tp.make_tp_train_step(tp_net, torch.optim.SGD(tp_net.parameters(), lr=1e-2),
+                                 mesh_mod.make_mesh(model_parallel=world, device=dev))
+    loss = float(step(obs, mask, target))
+    optimizer = torch.optim.SGD(net.parameters(), lr=1e-2)
+    rep_loss = ((torch.where(mask, net(obs), 0.0) - target) ** 2).mean()
+    rep_loss.backward()
+    optimizer.step()
+    rep_loss = rep_loss.item()
+    full, rep = tp_net.full_state_dict(), net.state_dict()
+    out = {"tp_forward_err": float((q_tp - q_rep).abs().max()),
+           "tp_forward_ms": statistics.median(q_tp_ms), "forward_ms": statistics.median(q_rep_ms),
+           "tp_step_loss_err": abs(loss - rep_loss),
+           "tp_step_param_err": max(float((full[k] - rep[k]).abs().max()) for k in rep),
+           "head_rows": tuple(tp_net.net.head.weight.shape)}
+
+    mesh = mesh_mod.make_mesh(device=dev)
+    cfg = dqn.DQNConfig(**PAR_CENSUS)
+    ts = dqn.init_train_state(cfg, dqn.make_net(cfg, dev), gen)
+    env = mesh_mod.shard_env_state(bc.reset_planes(cfg.num_envs, dev), mesh)
+    buf = sharded_train.shard_buffer(replay.make_buffer(cfg.buffer_size, dev), mesh)
+    it, _ = sharded_train.make_sharded_train_iteration(cfg, mesh)
+    (env, buf, _), census = ca.collective_census(
+        it, ts, env, buf, mesh_mod.rank_generator(0, rank, dev))
+    param_bytes = sum(p.numel() * p.element_size() for p in ts.net.parameters())
+    out.update({
+        "census_ops": sorted({c["op"] for c in census}),
+        "census_bytes": sum(c["bytes"] for c in census), "census_count": len(census),
+        "param_bytes": param_bytes, "updates": cfg.update_per_collect,
+        "env_partitioned": all(ca.is_partitioned(x.shape, (*x.shape[:-1], cfg.num_envs), world)
+                               for x in env),
+        "ring_partitioned": all(ca.is_partitioned(x.shape, (cfg.buffer_size, *x.shape[1:]), world)
+                                for x in buf[:-2]),
+    })
+    return out
+
+
+def timed_call(fn, *args, **kw):
+    """(fn's result, its seconds on the host clock)."""
+    w0 = time.perf_counter()
+    return fn(*args, **kw), time.perf_counter() - w0
+
+
+def phase_parallel(smi: str, gen: torch.Generator) -> None:
+    """22. the parallel slice: world size 1, then two ranks on one card."""
+    import torch.distributed as dist
+
+    from gobblet_rl_torch.kernels import rollout as R
+    from gobblet_rl_torch.parallel import mesh as mesh_mod
+    from gobblet_rl_torch.parallel import sharded_alphazero, sharded_ppo, sharded_train
+    from gobblet_rl_torch.parallel.multihost import launch_local, spawn_ranks
+    from gobblet_rl_torch.train import alphazero as az
+    from gobblet_rl_torch.train import dqn, ppo, replay
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    out = {}
+    R.rollout_random_fused.launches = 0
+    # the CPU side of the PPO check runs on a gloo rank beside the card work;
+    # one thread a job, so no job waits for another's
+    case = small_ppo_case()
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=5)
+    cpu_job = pool.submit(spawn_ranks, cpu_ppo_rank, 1, (case,), device="cpu", backend="gloo",
+                          timeout=300)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_mod.init_distributed(f"file://{tmp}/store", 1, 0, backend=PAR_BACKEND, device=dev)
+        try:
+            mesh = mesh_mod.make_mesh(device=dev)
+            # DQN at phase 5's width: sharded and unsharded from one seed
+            config = dqn.DQNConfig(**DQN)
+            runs = {}
+            for name, make in (("sharded", lambda: sharded_train.make_sharded_train_iteration(
+                    config, mesh)), ("unsharded", lambda: dqn.make_train_iteration(config))):
+                g = torch.Generator(device=dev)
+                g.manual_seed(11)
+                ts = dqn.init_train_state(config, dqn.make_net(config, dev), g)
+                it, opp = make()
+                env = dqn.init_env_state(config, opp, ts.opponent_net, g)
+                buf = replay.make_buffer(config.buffer_size, dev)
+                ms = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    w0 = time.perf_counter()
+                    env, buf, loss = it(ts, env, buf, g)
+                    loss = float(loss)   # synchronises
+                    ms.append(1e3 * (time.perf_counter() - w0))
+                runs[name] = (ts, env, buf, ms, loss)
+            (ts_a, env_a, buf_a, ms_a, loss_a), (ts_b, env_b, buf_b, ms_b, loss_b) = (
+                runs["sharded"], runs["unsharded"])
+            check(nets_equal(ts_a.net, ts_b.net) and nets_equal(ts_a.target_net, ts_b.target_net),
+                  "parallel: world-1 DQN params == unsharded")
+            check(trees_equal(buf_a, buf_b), "parallel: world-1 DQN ring == unsharded")
+            check(trees_equal(env_a, env_b), "parallel: world-1 DQN env state == unsharded")
+            check(loss_a == loss_b and math.isfinite(loss_a), "parallel: world-1 DQN loss")
+            sync = mesh_mod.GradSync(mesh.get_group(mesh_mod.ENV_AXIS))
+            _, sync_ms = timed(lambda: sync(ts_a.net.parameters(), torch.zeros((), device=dev)),
+                               PAR_SYNC_REPEATS)
+            out["dqn_world1"] = {"sharded_iteration_ms": ms_a, "unsharded_iteration_ms": ms_b,
+                                 "sync_ms_per_update": statistics.median(sync_ms),
+                                 "sync_bytes": 4 * (1 + sum(p.numel() for p in
+                                                            ts_a.net.parameters())),
+                                 "loss": loss_a}
+            del runs, ts_a, ts_b, env_a, env_b, buf_a, buf_b
+            log(f"# phase 22: {json.dumps(out['dqn_world1'])}")
+
+            # PPO at phase 15's width, timed
+            cfg = ppo.PPOConfig(**PPO)
+            st = ppo.init_ppo(cfg, gen)
+            net, opt = st.nets[0], st.optimizers[0]
+            before = {k: v.clone() for k, v in net.state_dict().items()}
+            it = sharded_ppo.make_sharded_ppo_iteration(cfg, mesh, dev)
+            env, ppo_ms = st.env_states[0], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                env, stats = it(net, net, opt, env, gen, cfg.learner_player)
+                ppo_loss = float(stats["loss"])
+                ppo_ms.append(1e3 * (time.perf_counter() - w0))
+                check(math.isfinite(ppo_loss) and int(stats["episodes"]) > 0,
+                      "parallel: world-1 PPO loss finite, episodes")
+            check(any(not torch.equal(before[k], v) for k, v in net.state_dict().items()),
+                  "parallel: world-1 PPO params changed")
+            out["ppo_world1"] = {"iteration_ms": ppo_ms, "first_is_warm_up": True,
+                                 "loss": ppo_loss}
+            del st, net, opt, env
+
+            # PPO card against CPU on exact linear nets under one set of draws
+            card = run_small_ppo(case, dev)
+
+            out["world1_before_az_s"] = time.perf_counter() - t0
+            # two gloo ranks on the one card: the three families' launches and
+            # the TP + census ranks run at once, beside the AZ check below, so
+            # their seconds overlap
+            dqn_config = {k: v for k, v in DQN.items() if k != "num_envs"}
+            family_kw = {"dqn": dict(num_envs=DQN["num_envs"], iterations=2, config=dqn_config),
+                         "az": dict(num_envs=PAR_SMALL["az"], iterations=1),
+                         "ppo": dict(num_envs=PAR_SMALL["ppo"], iterations=1)}
+            jobs = {family: pool.submit(timed_call, launch_local, 1, 2, family=family,
+                                        device=str(dev), backend=PAR_RANK_BACKEND, timeout=300,
+                                        **kw)
+                    for family, kw in family_kw.items()}
+            tp_job = pool.submit(timed_call, spawn_ranks, tp_census_rank, 2, (PAR_TP_B,),
+                                 device=str(dev), backend=PAR_RANK_BACKEND, timeout=300)
+
+            # AZ at the resume checks' cut, bit for bit; cuDNN's deterministic
+            # algorithms, so two runs of one conv backward agree
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                cfg = az.AZConfig(**PAR_AZ)
+                states, az_s = [], []
+                for sharded in (True, False):
+                    g = torch.Generator(device=dev)
+                    g.manual_seed(12)
+                    st = az.init_alphazero(cfg, g)
+                    it = (sharded_alphazero.make_sharded_az_iteration(cfg, mesh) if sharded
+                          else az.make_train_iteration(cfg))
+                    w0 = time.perf_counter()
+                    stats = it(st, g)
+                    az_loss = float(stats["loss"])
+                    az_s.append(time.perf_counter() - w0)
+                    states.append((st, az_loss))
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            (st_a, l_a), (st_b, l_b) = states
+            check(nets_equal(st_a.net, st_b.net) and trees_equal(st_a.env_state, st_b.env_state),
+                  "parallel: world-1 AZ params and env state == unsharded")
+            check(l_a == l_b and math.isfinite(l_a), "parallel: world-1 AZ loss")
+            out["az_world1"] = {"sharded_s": az_s[0], "unsharded_s": az_s[1], "loss": l_a,
+                                "beside_the_launches": True}
+            log(f"# phase 22: {json.dumps(out['az_world1'])}")
+            del states, st_a, st_b
+        finally:
+            dist.destroy_process_group()
+    (cpu,) = cpu_job.result()
+    err = max(float((card[k] - cpu[k]).abs().max()) for k in card)
+    check(err <= PAR_TOL, f"parallel: PPO card == CPU within {PAR_TOL} (max {err:.3g})")
+    out["ppo_card_vs_cpu_max_abs_err"] = err
+    launches = {}
+    for family, job in jobs.items():
+        res, secs = job.result()   # launch_local raises unless one digest
+        check(len(res) == 2 and all(math.isfinite(r["loss"]) for r in res),
+              f"parallel: two-rank {family} finite loss on both ranks")
+        launches[family] = {"launch_s": secs, "iterations_s": [r["seconds"] for r in res],
+                            "loss": res[0]["loss"], "digest": res[0]["digest"][:16],
+                            **({"grad_steps": res[0]["grad_steps"]} if family == "dqn" else {})}
+    check(launches["dqn"]["grad_steps"] == 2 * DQN["update_per_collect"],
+          "parallel: two-rank DQN grad steps")
+    out["two_ranks"] = launches
+
+    ranks, tp_s = tp_job.result()
+    pool.shutdown()
+    for r in ranks:
+        check(r["tp_forward_err"] <= PAR_TOL and r["tp_step_loss_err"] <= PAR_TOL
+              and r["tp_step_param_err"] <= PAR_TOL,
+              f"parallel: TP forward and step == replicated within {PAR_TOL}")
+        check(r["census_ops"] == ["all_reduce"], "parallel: the DP census holds only all-reduces")
+        check(r["census_bytes"] <= r["updates"] * (r["param_bytes"] + 4096),
+              "parallel: the DP census within updates x (param bytes + 4096)")
+        check(r["env_partitioned"] and r["ring_partitioned"], "parallel: env and ring blocks")
+    out["tp_census"] = {**ranks[0], "launch_s": tp_s}
+    check(R.rollout_random_fused.launches == 0, "parallel: the path launches no rollout kernel")
+    log(json.dumps({"metric": "parallel", "device": smi, **out,
+                    "seconds": time.perf_counter() - t0}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card",
@@ -1605,6 +1936,9 @@ def main() -> int:
 
     # 21. the host surface's agents; no kernel ------------------------------
     phase_host_agents(smi, gen)
+
+    # 22. the parallel slice; no kernel --------------------------------------
+    phase_parallel(smi, gen)
 
     log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "

@@ -60,7 +60,13 @@ Layout:
   ``gymnasium`` and, to draw, ``pygame``; the adapters need their
   framework.
 
-Not ported yet: parallelism (``parallel/``; ``ROADMAP.md`` §A, A.16).
+* ``parallel/``            parallelism over ``torch.distributed`` (NCCL on
+  the card, gloo on the CPU), one process a rank: the (env x model) mesh
+  and the gradient sync, the data-parallel DQN, AlphaZero and PPO
+  iterations, tensor parallelism with explicit collectives, the
+  multi-process runner and the collective audit
+
+Every module of the JAX package has its counterpart here.
 """
 
 __version__ = "0.1.0"

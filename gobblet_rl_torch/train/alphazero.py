@@ -236,12 +236,14 @@ def flatten_segment(traj, z, valid) -> dict:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float) -> None:
+def clip_by_global_norm_(params, max_norm: float, sq_norm=None) -> None:
     """optax's ``clip_by_global_norm`` on the gradients, in place: each is
     scaled by ``max_norm / norm`` unless the global norm is below
-    ``max_norm`` (no epsilon, unlike ``clip_grad_norm_``)."""
+    ``max_norm`` (no epsilon, unlike ``clip_grad_norm_``).  ``sq_norm``,
+    if given, maps the gradients to the squared global norm (for
+    parameters split over ranks, ``parallel/tensor_parallel.py``)."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    norm = torch.sqrt(sum((g * g).sum() for g in grads) if sq_norm is None else sq_norm(grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -254,12 +256,18 @@ def make_optimizer(config: AZConfig, net: torch.nn.Module) -> torch.optim.Optimi
                              weight_decay=config.weight_decay)
 
 
-def make_update_phase(config: AZConfig):
+def make_update_phase(config: AZConfig, grad_sync=None, grad_sq_norm=None):
     """Minibatched updates over a flat self-play batch:
     ``update_phase(net, optimizer, flat, generator, perm=None) ->
     (losses, policy_losses, value_losses)``, each float32[updates_per_iter].
     Update i trains on ``perm[start_i : start_i + mb]``; ``perm`` is a
-    permutation of the rows drawn from ``generator`` unless given."""
+    permutation of the rows drawn from ``generator`` unless given.
+
+    ``grad_sync`` (``parallel.mesh.GradSync``), if given, averages the
+    gradients over the data-parallel ranks after each backward pass and
+    BEFORE the clip, as optax clips the averaged gradients; the losses
+    returned stay this rank's.  ``grad_sq_norm`` is the clip's
+    ``sq_norm``."""
     loss_fn = make_loss_fn(config)
 
     def update_phase(net, optimizer, flat, generator=None, perm=None):
@@ -274,7 +282,9 @@ def make_update_phase(config: AZConfig):
             loss, (p_l, v_l) = loss_fn(net, {k: v[idx] for k, v in flat.items()})
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
-            clip_by_global_norm_(net.parameters(), config.max_grad_norm)
+            if grad_sync is not None:
+                grad_sync(net.parameters())
+            clip_by_global_norm_(net.parameters(), config.max_grad_norm, grad_sq_norm)
             optimizer.step()
             out.append(torch.stack([loss, p_l, v_l]).detach())
         return torch.stack(out).unbind(1)

@@ -179,11 +179,14 @@ def init_env_state(config: DQNConfig, opponent_fn, opp_net, generator: torch.Gen
     return state
 
 
-def update(config: DQNConfig, ts: TrainState, batch, bank: dict | None = None) -> torch.Tensor:
+def update(config: DQNConfig, ts: TrainState, batch, bank: dict | None = None,
+           grad_sync=None) -> torch.Tensor:
     """One double-DQN gradient step on ``batch`` = (obs, action, reward_n,
     done_n, obs_n, mask_n), in place on ``ts``; returns the detached loss.
     With a defense ``bank``, the loss adds ``defense_bc_weight`` times the
-    bank's cross-entropy over the masked Q-values as logits."""
+    bank's cross-entropy over the masked Q-values as logits.  ``grad_sync``
+    (``parallel.mesh.GradSync``), if given, averages the gradients and the
+    loss over the data-parallel ranks before the optimizer steps."""
     obs, action, reward_n, done_n, obs_n, mask_n = batch
     with torch.no_grad():
         q_next = masked_q(ts.target_net(obs_n), mask_n)
@@ -201,6 +204,8 @@ def update(config: DQNConfig, ts: TrainState, batch, bank: dict | None = None) -
         loss = loss + config.defense_bc_weight * defense.bank_loss(ts.net(bank["obs"]), bank)
     ts.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if grad_sync is not None:
+        (loss,) = grad_sync(ts.net.parameters(), loss)
     ts.optimizer.step()
     ts.grad_steps += 1
     if ts.grad_steps % config.target_update_freq == 0:
@@ -208,9 +213,9 @@ def update(config: DQNConfig, ts: TrainState, batch, bank: dict | None = None) -
     return loss.detach()
 
 
-def make_train_iteration(config: DQNConfig, bank: dict | None = None):
+def make_train_iteration(config: DQNConfig, bank: dict | None = None, grad_sync=None):
     """Returns ``(train_iteration, opponent_fn)`` (updates with the defense
-    ``bank``, if given);
+    ``bank``, if given, and ``grad_sync``, as :func:`update`);
     ``train_iteration(ts, env_state, buffer, generator, mark=None)`` returns
     ``(env_state, buffer, mean loss)`` and updates ``ts`` and the ring in
     place.  ``mark``, if given, is called with "collect", "insert",
@@ -253,8 +258,8 @@ def make_train_iteration(config: DQNConfig, bank: dict | None = None):
         U, bs = config.update_per_collect, config.batch_size
         flat = replay.sample(buffer, generator, bs * U)
         mark("sample")
-        losses = [update(config, ts, tuple(x[u * bs:(u + 1) * bs] for x in flat), bank)
-                  for u in range(U)]
+        losses = [update(config, ts, tuple(x[u * bs:(u + 1) * bs] for x in flat), bank,
+                         grad_sync) for u in range(U)]
         mark("updates")
         return env_state, buffer, torch.stack(losses).mean()
 
