@@ -57,9 +57,10 @@ its plain PyTorch version:
     payload equals the saved one, tensor for tensor, and every segment's
     targets pass the checks above;
 14. the zoo agent ``alphazero_gumbel32`` on the card: logits and values on
-    4,096 positions against the CPU's, then 128 games of at most 50 plies
-    against the depth-2 greedy with colours swapped at the manifest's 128
-    simulations (win rate at least 0.85);
+    4,096 positions against the CPU's, then 128 games against the depth-2
+    greedy with colours swapped at the manifest's 128 simulations and
+    ``play_match``'s default cap of 100 plies, the manifest's protocol (win
+    rate at least 0.85; the games past 50 plies counted);
 15. the PPO iteration of ``bench.py`` at full width (8,192 envs, segment
     32, one shared MLP 128x128, both seats, the "self" opponent, 4 epochs
     of 8 minibatches): 1 warm-up and 3 timed iterations split by CUDA
@@ -133,9 +134,19 @@ its plain PyTorch version:
     PPO at 16 envs (one digest each), and a TP forward and SGD step of the
     dueling ``QNet`` at batch 4,096 within 1e-5 of the replicated net, and
     the census of one DP iteration (only all-reduces, at most updates x
-    (param bytes + 4096)); the launches run at once, beside the AZ check.
+    (param bytes + 4096)); the launches run at once, beside the AZ check;
+23. the repository's tools on the card: ``make_zoo --quick --entries
+    ppo_league --eval-games 8`` as a command line into a temporary zoo (the
+    manifest row, the blob, its policy's moves legal), in a process of its
+    own beside the rest: every committed zoo entry loaded, written back by
+    ``zoo.save`` into a temporary directory (the same bytes as the
+    committed blob) and reloaded (every weight equal); ``profile_dqn
+    --family dqn --envs 262144 --iters 3`` (busy share in (0, 1], the
+    classes summing to the device total, every row called); and
+    ``exploitability --agents dqn_greedy random --games 8 --defense-games
+    4`` (a forced loss for each agent as second player).
 
-Phases 7-22 each print one JSON line with the card's name and power limit
+Phases 7-23 each print one JSON line with the card's name and power limit
 and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
@@ -146,6 +157,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import json
 import math
@@ -174,12 +186,14 @@ AZ = dict(search="gumbel_lm", num_sims=32, num_envs=2048, segment_len=48, model=
           channels=64, blocks=2, batch_size=2048, updates_per_iter=8)
 SEARCH_PARITY_B, SEARCH_MIN_SAME = 1024, 0.99
 # the resume checks and the zoo match are cut to keep the script well
-# inside its time on a slow host: segment 16, and 128 games of at most 50
-# plies (the launch-bound match runs until its last game ends; a game still
-# open at the cap counts as undecided, outside the win rate).  The match
-# went from 256 games to 128 when the parallel phase took all phases to
-# 626.2 s on a slow host.
-AZ_RESUME_ENVS, AZ_RESUME_SEGMENT, AZ_ZOO_GAMES, AZ_ZOO_MAX_PLIES = 256, 16, 128, 50
+# inside its time on a slow host: segment 16, and 128 games (the match went
+# from 256 games to 128 when the parallel phase took all phases to 626.2 s
+# on a slow host).  The match plays play_match's default cap of 100 plies,
+# the protocol of the manifest's figure (scripts/make_zoo.py:35-49); the
+# launch-bound match runs until its last game ends, and a game still open
+# at the cap counts as undecided, outside the win rate.  The games still
+# open after 50 plies are counted.
+AZ_RESUME_ENVS, AZ_RESUME_SEGMENT, AZ_ZOO_GAMES, AZ_ZOO_LONG_PLIES = 256, 16, 128, 50
 AZ_ZOO_MIN_WIN_RATE = 0.85
 # The PPO iteration of bench.py (bench.py:276-322), not cut.
 PPO = dict(num_envs=8192, segment_len=32, shared_policy=True, learner_player="both",
@@ -208,6 +222,8 @@ TOURNAMENT_ARGS = ["--agents", "random", "greedy-2", "--zoo-search", "dqn_greedy
 TPU_ROUND_ELO = {"alphazero_gumbel32+search2": 1170, "dqn_greedy+search2": 1116,
                  "greedy-2": 778, "random": 210}
 SOLVER_GAMES, SOLVER_MAX_PLIES, SOLVER_MIN_WIN_RATE = 8, 60, 0.85
+# make_zoo's quick pipeline runs as a command line of its own (phase 23)
+TOOLS_MAKE_ZOO_TIMEOUT = 300
 API_B, API_PLIES, API_ARBITRARY_EVERY = 262144, 64, 8
 # The host agents: games a seat against alpha-beta, their ply cap (two
 # deterministic players can repeat forever: the game has no repetition
@@ -812,16 +828,29 @@ def phase_az_zoo(smi: str, gen: torch.Generator) -> None:
             tol = 2e-2 * float(cpu.abs().max())
             errs[name] = (float((card.cpu() - cpu).abs().max()), tol)
             check(errs[name][0] <= tol, f"az zoo: {name} on the card within {tol:.4g} of the CPU's")
+    policy = zoo.policy("alphazero_gumbel32", device=dev)
+    long_games = {"calls": 0, "open": 0}
+
+    def counted(generator, board, current):
+        # play_match calls policy A once a ply of each half, which starts on
+        # empty boards; the games without a winner at ply 50 run past it
+        if not bool(board.any()):
+            long_games["calls"] = 0
+        if long_games["calls"] == AZ_ZOO_LONG_PLIES:
+            long_games["open"] += int((bc.winner_planes(bc.flat_planes(board)) == 0).sum())
+        long_games["calls"] += 1
+        return policy(generator, board, current)
+
     w0 = time.perf_counter()
-    match = tournament.play_match(zoo.policy("alphazero_gumbel32", device=dev),
-                                  tournament.greedy_policy(2), num_games=AZ_ZOO_GAMES,
-                                  max_plies=AZ_ZOO_MAX_PLIES, seed=0, device=dev)
+    match = tournament.play_match(counted, tournament.greedy_policy(2), num_games=AZ_ZOO_GAMES,
+                                  seed=0, device=dev)
     match_s = time.perf_counter() - w0
     check(match["win_rate"] >= AZ_ZOO_MIN_WIN_RATE,
           f"az zoo: alphazero_gumbel32 vs greedy-2 win rate {match['win_rate']:.3f} >= "
           f"{AZ_ZOO_MIN_WIN_RATE}")
     log(json.dumps({"metric": "zoo_alphazero_gumbel32_vs_greedy2", "device": smi, **match,
-                    "num_sims": entry["eval"]["num_sims"], "max_plies": AZ_ZOO_MAX_PLIES,
+                    "num_sims": entry["eval"]["num_sims"], "max_plies": 100,
+                    "games_past_50_plies": long_games["open"],
                     "manifest_vs_greedy_2": entry["metrics"]["vs_greedy-2"],
                     "positions": GREEDY_PARITY_B,
                     "max_abs_err": {k: v[0] for k, v in errs.items()},
@@ -1571,6 +1600,114 @@ def timed_call(fn, *args, **kw):
     return fn(*args, **kw), time.perf_counter() - w0
 
 
+@contextlib.contextmanager
+def zoo_dir(path: str):
+    """``$GOBBLET_ZOO_DIR`` set to ``path`` for the block, restored after."""
+    saved = os.environ.get("GOBBLET_ZOO_DIR")
+    os.environ["GOBBLET_ZOO_DIR"] = path
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("GOBBLET_ZOO_DIR")
+        else:
+            os.environ["GOBBLET_ZOO_DIR"] = saved
+
+
+def phase_tools(smi: str, gen: torch.Generator) -> None:
+    """23. the repository's tools: make_zoo's command line in a process of
+    its own, beside zoo writing, profile_dqn and exploitability here."""
+    from gobblet_rl_torch import zoo
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.scripts import exploitability, profile_dqn
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    committed = Path(zoo._zoo_dir())
+    out = {"metric": "tools", "device": smi}
+    with tempfile.TemporaryDirectory() as quick_zoo, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        # (b), started first: the quick pipeline as a user runs it, into a
+        # temporary zoo; it trains on the card while (a), (c) and (d) run
+        make_zoo_job = pool.submit(
+            timed_call, subprocess.run,
+            [sys.executable, "-m", "gobblet_rl_torch.scripts.make_zoo", "--quick",
+             "--entries", "ppo_league", "--eval-games", "8", "--device", "cuda",
+             "--zoo-dir", quick_zoo],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=TOOLS_MAKE_ZOO_TIMEOUT)
+
+        # (a) each committed entry, loaded on the card, written back and
+        # reloaded from what was written
+        names = zoo.names()
+        check(len(names) == 3, "tools: the committed zoo's three entries")
+        with tempfile.TemporaryDirectory() as tmp:
+            for name in names:
+                entry = zoo.meta(name)
+                net, _, _ = zoo.load(name, device=dev)
+                with zoo_dir(tmp):
+                    zoo.save(name, net, entry)
+                    again, _, _ = zoo.load(name, device=dev)
+                written = (Path(tmp) / entry["file"]).read_bytes()
+                check(written == (committed / entry["file"]).read_bytes(),
+                      f"tools: zoo.save of {name} from the card == the committed blob")
+                check(all(torch.equal(v, again.state_dict()[k])
+                          for k, v in net.state_dict().items()),
+                      f"tools: {name} reloaded, every weight equal")
+        out["zoo_entries_written"] = len(names)
+        out["zoo_s"] = time.perf_counter() - t0
+
+        # (c) the profile of the random-opponent DQN iteration at phase 5's
+        # width (make_zoo's process shares the card meanwhile)
+        with tempfile.TemporaryDirectory() as tmp:
+            w0 = time.perf_counter()
+            summary = profile_dqn.main(["--family", "dqn", "--envs", str(DQN["num_envs"]),
+                                        "--iters", "3", "--top", "10", "--logdir", tmp])
+            out["profile_s"] = time.perf_counter() - w0
+            table = profile_dqn.device_op_table(next(Path(tmp).glob("trace-*.json")), dev)
+        check(0 < summary["device_busy_frac_of_wall"] <= 1, "tools: busy share in (0, 1]")
+        check(abs(sum(summary["by_class_ms"].values()) - summary["device_total_ms"]) < 1e-2,
+              "tools: the classes sum to the device total")
+        check(abs(3 * summary["module_ms_per_iter"] - summary["device_total_ms"]) < 1e-2,
+              "tools: an iteration's device time is a third of the total")
+        check(all(n >= 1 for _, _, n in table) and table, "tools: every row has a call")
+        out["profile"] = {k: v for k, v in summary.items() if k != "top"}
+        out["profile_rows"], out["profile_calls"] = len(table), sum(n for _, _, n in table)
+
+        # (d) the exact-solver audit
+        w0 = time.perf_counter()
+        rows = exploitability.main(["--agents", "dqn_greedy", "random", "--games", "8",
+                                    "--defense-games", "4", "--device", "cuda"])
+        out["exploitability_s"] = time.perf_counter() - w0
+        for r in rows:
+            check(r["forced_loss_rate"] == 1.0,
+                  f"tools: {r['agent']} loses by force as second player")
+        out["exploitability"] = rows
+
+        # (b)'s result: the manifest row, the blob, its policy on the card
+        res, out["make_zoo_quick_s"] = make_zoo_job.result()
+        print(res.stdout, end="", flush=True)
+        check(res.returncode == 0, f"tools: make_zoo --quick exited {res.returncode}: "
+                                   f"{res.stderr[-2000:]}")
+        row = json.loads((Path(quick_zoo) / "manifest.json").read_text())["ppo_league"]
+        check(row["family"] == "ppo" and "vs_random" in row["metrics"],
+              "tools: make_zoo's manifest row")
+        check((Path(quick_zoo) / "ppo_league.msgpack").stat().st_size > 1000,
+              "tools: make_zoo's blob over 1,000 bytes")
+        with zoo_dir(quick_zoo):
+            pol = zoo.policy("ppo_league", device=dev)
+        state = bc.reset_planes(64, dev)
+        for _ in range(8):
+            mask = bc.legal_mask_planes(state.board, state.current)
+            actions = pol(gen, state.board, state.current)
+            check(bool(mask[actions.long(), torch.arange(64, device=dev)].all()),
+                  "tools: make_zoo's ppo_league plays legal moves on the card")
+            state = bc.autoreset_planes(bc.step_planes(state, actions))
+        out["make_zoo_metrics"] = row["metrics"]
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps(out))
+
+
 def phase_parallel(smi: str, gen: torch.Generator) -> None:
     """22. the parallel slice: world size 1, then two ranks on one card."""
     import torch.distributed as dist
@@ -1939,6 +2076,9 @@ def main() -> int:
 
     # 22. the parallel slice; no kernel --------------------------------------
     phase_parallel(smi, gen)
+
+    # 23. the repository's tools; no kernel ----------------------------------
+    phase_tools(smi, gen)
 
     log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "

@@ -20,7 +20,8 @@ Layout:
   ``kernels/csrc/rollout.cu``) and its plain version
 * ``models/mlp.py``        ``QNet`` + masked argmax
 * ``models/actor_critic.py``  ``ConvActorCritic`` / ``MLPActorCritic`` and the
-  masked sampling helpers; ``models/convert.py`` loads flax parameters
+  masked sampling helpers; ``models/convert.py`` carries parameters
+  between flax trees and the modules
 * ``search/``              Gumbel (sequential halving) and PUCT searches on
   lane-major trees, with batch-first entry points
 * ``policies/greedy_jax.py``  the batched depth-1/2 greedy opponent;
@@ -45,13 +46,18 @@ Layout:
   solver policies, ``play_match``, ``defense_audit``, ``round_robin``
 * ``zoo/``                 the committed ``dqn``, ``alphazero`` and ``ppo``
   agents, read from the JAX package's blobs by a msgpack reader of its own,
-  and ``host_agent``, one of them at B=1 behind the reference observation
+  ``save`` (flax blobs by its own writer, into ``$GOBBLET_ZOO_DIR``), and
+  ``host_agent``, one of them at B=1 behind the reference observation
 * ``utils/``               ``profiling`` (``trace``, ``annotate``,
   ``Throughput``) and ``helpers``
 * ``examples/``            the DQN, AlphaZero (with ``SearchAgentPolicy`` and
   the ``--watch`` modes; DQN's play mode), PPO and tournament command lines,
   and the host demos ``example_basic``, ``example_greedy``,
-  ``example_record_game`` and ``example_user_input``
+  ``example_record_game`` and ``example_user_input``, and the desktop
+  demo loops ``main`` and ``main_random``
+* ``scripts/``             ``make_zoo`` (the zoo's recipes), ``exploitability``
+  (the exact-solver audit) and ``profile_dqn`` (device time by kernel)
+* ``tutorials/``           the greedy and tiny-AlphaZero tutorials
 * ``board.py``, ``render/``, ``env/aec.py``, ``gobblet_v1.py``,
   ``interactive/``, ``adapters/``  the host surface: the PettingZoo AEC env,
   its renders and GIF recorder, ``GameSession``, the pygame manual policy
@@ -69,4 +75,4 @@ Layout:
 Every module of the JAX package has its counterpart here.
 """
 
-__version__ = "0.1.0"
+from gobblet_rl_torch.__version__ import __version__

@@ -6,9 +6,10 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; it raises when CUDA is absent rather
-    than dropping to the CPU.  Any explicit device is taken as given."""
-    if device is None:
+    """``None`` (or ``"cuda"``, a command line's ``--device`` default)
+    means the CUDA card; it raises when CUDA is absent rather than dropping
+    to the CPU.  Any other device is taken as given."""
+    if device is None or device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run the plain "

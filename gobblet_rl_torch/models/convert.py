@@ -1,4 +1,4 @@
-"""Load flax parameters into the port's modules.
+"""Carry parameters between flax trees and the port's modules.
 
 The flax trees, as numpy arrays, are ``{"params": {name: {"kernel", "bias"}}}``
 with the layers numbered in creation order per kind:
@@ -13,7 +13,9 @@ with the layers numbered in creation order per kind:
 
 A ``Dense`` kernel ``[in, out]`` becomes a ``Linear.weight`` ``[out, in]``;
 a ``Conv`` kernel ``[h, w, in, out]`` a ``Conv2d.weight`` ``[out, in, h, w]``
-(both frameworks cross-correlate).
+(both frameworks cross-correlate).  The ``*_to_flax`` functions are the
+exact inverses: the same names, the flax layouts, float32 numpy arrays
+with every key sorted as flax's own trees are.
 """
 
 from __future__ import annotations
@@ -69,3 +71,51 @@ def actor_critic_params_from_flax(params, model: str) -> dict[str, torch.Tensor]
     for name, key in zip(names, dense):
         _load(out, name, tree[key], (1, 0))
     return out
+
+
+def _host(state_dict, key: str) -> np.ndarray:
+    x = state_dict[key].detach().cpu().numpy()
+    if x.dtype != np.float32:
+        raise ValueError(f"{key} is {x.dtype}, not float32")
+    return x
+
+
+def _save(out: dict, key: str, state_dict, name: str, axes: tuple) -> None:
+    # np.array copies: the tree never shares memory with the module
+    out[key] = {"bias": np.array(_host(state_dict, f"{name}.bias"), order="C"),
+                "kernel": np.array(_host(state_dict, f"{name}.weight").transpose(axes), order="C")}
+
+
+def _count(state_dict, prefix: str) -> int:
+    return len({k.split(".")[1] for k in state_dict if k.startswith(prefix + ".")})
+
+
+def _flax_tree(layers: dict) -> dict:
+    return {"params": {k: layers[k] for k in sorted(layers)}}
+
+
+def qnet_params_to_flax(state_dict, dueling: bool = False) -> dict:
+    """The flax tree ``{"params": {"Dense_i": {"bias", "kernel"}}}`` of a
+    :class:`~gobblet_rl_torch.models.mlp.QNet` state dict; inverse of
+    :func:`qnet_params_from_flax`."""
+    names = [f"hidden.{i}" for i in range(_count(state_dict, "hidden"))] + ["head"]
+    names += ["value"] if dueling else []
+    out = {}
+    for i, name in enumerate(names):
+        _save(out, f"Dense_{i}", state_dict, name, (1, 0))
+    return _flax_tree(out)
+
+
+def actor_critic_params_to_flax(state_dict, model: str) -> dict:
+    """The flax tree of a ``ConvActorCritic`` (``model="conv"``) or
+    ``MLPActorCritic`` (``model="mlp"``) state dict; inverse of
+    :func:`actor_critic_params_from_flax`."""
+    if model not in ("conv", "mlp"):
+        raise ValueError(f"unknown actor-critic model {model!r}; 'conv' or 'mlp'")
+    out = {}
+    for i in range(_count(state_dict, "convs")):
+        _save(out, f"Conv_{i}", state_dict, f"convs.{i}", (2, 3, 1, 0))
+    names = [f"hidden.{i}" for i in range(_count(state_dict, "hidden"))] + ["logits", "value"]
+    for i, name in enumerate(names):
+        _save(out, f"Dense_{i}", state_dict, name, (1, 0))
+    return _flax_tree(out)

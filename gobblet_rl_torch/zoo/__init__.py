@@ -11,6 +11,10 @@ carries the weights across with :mod:`gobblet_rl_torch.models.convert`:
     net, params, meta = zoo.load("alphazero_gumbel32")   # ConvActorCritic on the card
     policy = zoo.policy("alphazero_gumbel32")            # eval/tournament policy
     agent = zoo.host_agent("alphazero_gumbel32")         # GameSession-compatible
+
+:func:`save` writes an entry the JAX package's ``zoo.load`` reads, with
+the port's own msgpack writer; it writes only into ``$GOBBLET_ZOO_DIR``,
+never into the committed zoo.
 """
 
 from __future__ import annotations
@@ -26,17 +30,21 @@ import torch
 from gobblet_rl_torch.device import resolve_device
 from gobblet_rl_torch.eval import tournament
 from gobblet_rl_torch.models import actor_critic as ac
-from gobblet_rl_torch.models.convert import actor_critic_params_from_flax, qnet_params_from_flax
+from gobblet_rl_torch.models.convert import (actor_critic_params_from_flax,
+                                             actor_critic_params_to_flax, qnet_params_from_flax,
+                                             qnet_params_to_flax)
 from gobblet_rl_torch.models.mlp import QNet
 from gobblet_rl_torch.policies.greedy import board_from_observation
 from gobblet_rl_torch.train import alphazero
 from gobblet_rl_torch.zoo import flax_msgpack
 
 
+_COMMITTED = Path(__file__).resolve().parents[2] / "gobblet_rl_tpu" / "zoo"
+
+
 def _zoo_dir() -> str:
     """The committed zoo of the JAX package, or ``$GOBBLET_ZOO_DIR``."""
-    default = Path(__file__).resolve().parents[2] / "gobblet_rl_tpu" / "zoo"
-    return os.environ.get("GOBBLET_ZOO_DIR", str(default))
+    return os.environ.get("GOBBLET_ZOO_DIR", str(_COMMITTED))
 
 
 def _manifest() -> Dict[str, Any]:
@@ -94,6 +102,41 @@ def load(name: str, expect_family: str | None = None,
             net = ac.MLPActorCritic(hidden_sizes=tuple(net_cfg["hidden_sizes"]), device=device)
         net.load_state_dict(actor_critic_params_from_flax(params, net_cfg["model"]))
     return net, params, entry
+
+
+def save(name: str, net: torch.nn.Module, entry: Dict[str, Any]) -> None:
+    """Write a zoo entry: ``net``'s weights as a flax msgpack blob and its
+    manifest row (``entry``, with ``file`` defaulting to
+    ``<name>.msgpack``).  Safe to call repeatedly (overwrites).  Writes
+    only into ``$GOBBLET_ZOO_DIR``, and raises if it is unset or names the
+    committed zoo."""
+    target = os.environ.get("GOBBLET_ZOO_DIR")
+    if not target:
+        raise RuntimeError("zoo.save writes into $GOBBLET_ZOO_DIR, which is unset")
+    if Path(target).resolve() == _COMMITTED:
+        raise RuntimeError(f"zoo.save does not write into the committed zoo {_COMMITTED}")
+    entry = dict(entry)
+    entry.setdefault("file", f"{name}.msgpack")
+    family, net_cfg, sd = entry["family"], entry["net"], net.state_dict()
+    if family == "dqn":
+        tree = qnet_params_to_flax(sd, dueling=net_cfg["dueling"])
+    elif family in ("alphazero", "ppo"):
+        tree = actor_critic_params_to_flax(sd, net_cfg.get("model", "mlp"))
+    else:
+        raise ValueError(f"unknown zoo family {family!r}")
+    os.makedirs(target, exist_ok=True)
+    with open(os.path.join(target, entry["file"]), "wb") as f:
+        f.write(flax_msgpack.msgpack_serialize(tree))
+    m = _manifest()
+    m[name] = entry
+    # atomic replace: a crash mid-dump must not corrupt the manifest that
+    # every load and names call reads
+    path = os.path.join(target, "manifest.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(m, f, indent=2, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, path)
 
 
 def policy(name: str, device=None, **overrides):

@@ -1,4 +1,5 @@
-"""A reader of flax's msgpack serialization, in plain Python and numpy.
+"""A reader and a writer of flax's msgpack serialization, in plain Python
+and numpy.
 
 ``flax.serialization.to_bytes`` writes a parameter tree as msgpack: nested
 maps with string keys whose leaves are ndarrays packed as msgpack
@@ -7,7 +8,10 @@ or numpy scalars as extension type 3 (the same triple of a 0-d array).
 :func:`msgpack_restore` decodes that subset — maps, strings, binaries,
 arrays, integers, floats and those two extension types — into the tree
 ``flax.serialization.msgpack_restore`` returns, and raises ``ValueError``
-on anything else.
+on anything else.  :func:`msgpack_serialize` is its inverse: it writes
+that subset with the smallest header msgpack-python chooses for each
+value, so its bytes are those of ``flax.serialization.msgpack_serialize``
+for the same tree in the same key order.
 """
 
 from __future__ import annotations
@@ -117,3 +121,91 @@ def msgpack_restore(data: bytes) -> dict:
     if not isinstance(tree, dict):
         raise ValueError("a flax blob holds a map at its top")
     return tree
+
+
+def _header(n: int, fix: int | None, fix_max: int, wide: tuple) -> bytes:
+    """The smallest header of a sized value of length ``n``: the fixed form
+    ``fix | n`` up to ``fix_max``, else the first of ``wide``'s
+    ``(type byte, struct format)`` whose width holds ``n``."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for type_byte, fmt in wide:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([type_byte]) + struct.pack(fmt, n)
+    raise ValueError(f"a msgpack value of length {n} is too long")
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n <= 0x7F:
+        return bytes([n])
+    if -0x20 <= n < 0:
+        return struct.pack(">b", n)
+    ranges = ((0xCC, ">B", 0, 0xFF), (0xD0, ">b", -0x80, -1), (0xCD, ">H", 0, 0xFFFF),
+              (0xD1, ">h", -0x8000, -1), (0xCE, ">I", 0, 0xFFFFFFFF),
+              (0xD2, ">i", -0x80000000, -1), (0xCF, ">Q", 0, 0xFFFFFFFFFFFFFFFF),
+              (0xD3, ">q", -0x8000000000000000, -1))
+    for type_byte, fmt, lo, hi in ranges:
+        if lo <= n <= hi:
+            return bytes([type_byte]) + struct.pack(fmt, n)
+    raise ValueError(f"integer {n} does not fit in 64 bits")
+
+
+def _pack_ext(code: int, payload: bytes) -> bytes:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(payload) in fixext:
+        head = bytes([fixext[len(payload)]])
+    else:
+        head = _header(len(payload), None, 0, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+    return head + struct.pack(">b", code) + payload
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.fields is not None:
+        raise ValueError(f"cannot serialize an array of dtype {arr.dtype}")
+    return _packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def _pack(x, out: list) -> None:
+    if isinstance(x, np.ndarray):
+        out.append(_pack_ext(_EXT_NDARRAY, _ndarray_payload(x)))
+    elif isinstance(x, np.generic):
+        out.append(_pack_ext(_EXT_NPSCALAR, _ndarray_payload(np.asarray(x))))
+    elif type(x) is dict:
+        out.append(_header(len(x), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I"))))
+        for key, value in x.items():
+            if type(key) is not str:
+                raise ValueError(f"a map key must be a string, not {key!r}")
+            _pack(key, out)
+            _pack(value, out)
+    elif type(x) is list:
+        out.append(_header(len(x), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I"))))
+        for value in x:
+            _pack(value, out)
+    elif type(x) is str:
+        data = x.encode("utf-8")
+        out.append(_header(len(data), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"))))
+        out.append(data)
+    elif type(x) is bytes:
+        out.append(_header(len(x), None, 0, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I"))))
+        out.append(x)
+    elif type(x) is int:
+        out.append(_pack_int(x))
+    elif type(x) is float:
+        out.append(b"\xcb" + struct.pack(">d", x))
+    else:
+        raise ValueError(f"cannot serialize {type(x).__name__} into a flax blob")
+
+
+def _packb(x) -> bytes:
+    out: list = []
+    _pack(x, out)
+    return b"".join(out)
+
+
+def msgpack_serialize(tree: dict) -> bytes:
+    """The flax msgpack blob of ``tree``: nested dicts with string keys
+    (written in their iteration order) whose leaves are ndarrays, numpy
+    scalars, strings, bytes, integers, floats or lists of them."""
+    if type(tree) is not dict:
+        raise ValueError("a flax blob holds a map at its top")
+    return _packb(tree)

@@ -109,7 +109,10 @@ HOST_ONLY = ("gobblet_rl_torch.env.aec", "gobblet_rl_torch.gobblet_v1",
              "gobblet_rl_torch.adapters.rllib_adapter",
              "gobblet_rl_torch.examples.example_basic", "gobblet_rl_torch.examples.example_greedy",
              "gobblet_rl_torch.examples.example_record_game",
-             "gobblet_rl_torch.examples.example_user_input")
+             "gobblet_rl_torch.examples.example_user_input",
+             "gobblet_rl_torch.examples.main", "gobblet_rl_torch.examples.main_random",
+             "gobblet_rl_torch.tutorials.tutorial_greedy",
+             "gobblet_rl_torch.tutorials.tutorial_alphazero")
 
 
 def test_card_path_needs_no_host_package():
@@ -149,6 +152,10 @@ BORROWED_LIBRARY = re.compile(
 
 def test_source_scan_no_jax_imports():
     files = sorted((REPO / "gobblet_rl_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # the repository's tools and tutorials are in the scan too
+    for sub in ("scripts", "tutorials"):
+        tools = [f for f in files if f.parent.name == sub]
+        assert len(tools) >= (4 if sub == "scripts" else 3), sub
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|msgpack|gobblet_rl_tpu)\b", re.M)
     hits = [f"{f.name}: {m.group(0).strip()}" for f in files for m in pattern.finditer(f.read_text())]
     assert not hits, hits
@@ -158,7 +165,7 @@ def test_source_scan_no_jax_imports():
     for bad in ('ROOT / "gobblet_rl_tpu" / "native"', "gobblet_rl_tpu/native/libgobblet.so",
                 'subprocess.run(["make", "-C", csrc])', "os.system('make -C csrc')"):
         assert BORROWED_LIBRARY.search(bad), bad
-    assert len(files) >= 71
+    assert len(files) >= 82
 
 
 def test_device_none_means_cuda():
@@ -172,6 +179,16 @@ def test_device_none_means_cuda():
         with pytest.raises(RuntimeError):
             QNet()
     assert resolve_device("cpu") == CPU
+
+
+def test_device_cuda_string_means_the_card():
+    """``--device cuda``, every command line's default, is checked as
+    ``None`` is."""
+    if torch.cuda.is_available():
+        assert resolve_device("cuda") == resolve_device(None)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device("cuda")
 
 
 def test_reset_planes_matches():
