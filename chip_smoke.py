@@ -18,7 +18,8 @@ its plain PyTorch version:
    ``batched_core.rollout_random``, with the episode invariants checked;
 5. the full-width DQN iteration (262,144 envs, the bench configuration with
    the dueling head), then ``dqn.train`` for one epoch of two iterations;
-6. the kernel line: launches on the main path (phases 4-5), agreement with
+6. the kernel line: launches on the main path (phases 4-5, and phase 24's
+   bench and bench_scaling in processes of their own), agreement with
    the plain version at the main path's shape, times and the bound (the
    larger of bytes over HBM bandwidth and the ply loop's instructions over
    the SMs' integer rates; see the constants below), printed after 7-14;
@@ -144,9 +145,17 @@ its plain PyTorch version:
     --family dqn --envs 262144 --iters 3`` (busy share in (0, 1], the
     classes summing to the device total, every row called); and
     ``exploitability --agents dqn_greedy random --games 8 --defense-games
-    4`` (a forced loss for each agent as second player).
+    4`` (a forced loss for each agent as second player);
+24. the repository's timing tools on the card, as command lines in
+    processes of their own, started before phase 23 and run beside it:
+    ``python -m gobblet_rl_torch.scripts.bench`` at its defaults but the
+    AlphaZero segment (8 plies, not 48; phase 13 times the full iteration)
+    and ``python -m gobblet_rl_torch.scripts.bench_scaling`` (size 1 on one
+    card): the headline last and positive, the three train lines with
+    ``0 <= mfu <= 1``, the rollout kernel launched by the bench's headline
+    section, the scaling summary at one device; their lines and seconds.
 
-Phases 7-23 each print one JSON line with the card's name and power limit
+Phases 7-24 each print one JSON line with the card's name and power limit
 and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
@@ -224,6 +233,12 @@ TPU_ROUND_ELO = {"alphazero_gumbel32+search2": 1170, "dqn_greedy+search2": 1116,
 SOLVER_GAMES, SOLVER_MAX_PLIES, SOLVER_MIN_WIN_RATE = 8, 60, 0.85
 # make_zoo's quick pipeline runs as a command line of its own (phase 23)
 TOOLS_MAKE_ZOO_TIMEOUT = 300
+# The timing tools (phase 24) at the bench's defaults but the AlphaZero
+# segment: 8 plies, not 48, so the bench lasts about as long as phase 23
+# beside which it runs (phase 13 times the full-width iteration, and the
+# search is launch-bound: a ply costs about the same at any env count).
+BENCH_ENV = {"GOBBLET_BENCH_AZ_SEGMENT": "8"}
+BENCH_TIMEOUT, BENCH_KERNEL_LAUNCHES, SCALING_KERNEL_LAUNCHES = 600, 2 + 5, 1 + 3
 API_B, API_PLIES, API_ARBITRARY_EVERY = 262144, 64, 8
 # The host agents: games a seat against alpha-beta, their ply cap (two
 # deterministic players can repeat forever: the game has no repetition
@@ -1708,6 +1723,68 @@ def phase_tools(smi: str, gen: torch.Generator) -> None:
     log(json.dumps(out))
 
 
+def start_timing_tools(pool) -> dict:
+    """24, started: the port's bench and bench_scaling as command lines, each
+    in a process of its own; {name: future of (completed process, seconds)}."""
+    root = Path(__file__).resolve().parent
+    jobs = {}
+    for name, env in (("bench", BENCH_ENV), ("bench_scaling", {})):
+        jobs[name] = pool.submit(
+            timed_call, subprocess.run, [sys.executable, "-m", f"gobblet_rl_torch.scripts.{name}"],
+            cwd=root, env={**os.environ, **env}, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT)
+    return jobs
+
+
+def phase_timing_tools(smi: str, jobs: dict) -> dict:
+    """24. the timing tools' results: their contracts on the card; returns
+    the rollout kernel's launches in each."""
+    t0 = time.perf_counter()
+    out = {"metric": "timing_tools", "device": smi}
+    runs = {}
+    for name, job in jobs.items():
+        res, seconds = job.result()
+        print(res.stdout, end="", flush=True)
+        check(res.returncode == 0, f"timing tools: {name} exited {res.returncode}: "
+                                   f"{res.stderr[-2000:]}")
+        runs[name] = ([json.loads(line) for line in res.stdout.strip().splitlines()],
+                      res.stderr)
+        out[f"{name}_s"] = seconds
+
+    lines, err = runs["bench"]
+    by_metric = {rec["metric"]: rec for rec in lines}
+    check(lines[-1]["metric"] == "env_steps_per_sec" and lines[-1]["value"] > 0,
+          "bench: the headline last, positive")
+    for fam in ("dqn", "az", "ppo"):
+        rec = by_metric.get(f"{fam}_train_env_steps_per_sec")
+        check(rec is not None and rec["iterations_per_sec"] > 0, f"bench: the {fam} line")
+        check(rec["mfu"] is not None and 0 <= rec["mfu"] <= 1, f"bench: {fam} mfu in [0, 1]")
+        check(rec["flop_counter_flops_per_iter"] > 0, f"bench: {fam} FLOPs counted")
+    aux = by_metric["rollout_roofline"]
+    check(aux["hbm_util"] is not None and 0 < aux["hbm_util"] <= 1,
+          "bench: the rollout's HBM share in (0, 1]")
+    found = re.findall(r"# rollout kernel launches: (\d+)", err)
+    check(len(found) == 1 and int(found[0]) == BENCH_KERNEL_LAUNCHES,
+          "bench: the headline launched the rollout kernel once a call")
+    launches = {"phase 24 bench": int(found[0])}
+    out["bench"] = lines
+
+    lines, err = runs["bench_scaling"]
+    per_size = [rec for rec in lines if rec["metric"] == "weak_scaling_env_steps_per_sec"]
+    check([rec["devices"] for rec in per_size] == [1] and per_size[0]["value"] > 0,
+          "bench_scaling: size 1 on one card")
+    check(lines[-1]["metric"] == "weak_scaling_efficiency" and lines[-1]["devices"] == 1,
+          "bench_scaling: the summary at one device")
+    found = re.findall(r"# 1 ranks: kernel launches \[(\d+)\]", err)
+    check(found == [str(SCALING_KERNEL_LAUNCHES)], "bench_scaling: the rank launched the kernel")
+    launches["phase 24 bench_scaling"] = int(found[0])
+    out["bench_scaling"] = lines
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps(out))
+    return launches
+
+
 def phase_parallel(smi: str, gen: torch.Generator) -> None:
     """22. the parallel slice: world size 1, then two ranks on one card."""
     import torch.distributed as dist
@@ -2077,8 +2154,12 @@ def main() -> int:
     # 22. the parallel slice; no kernel --------------------------------------
     phase_parallel(smi, gen)
 
-    # 23. the repository's tools; no kernel ----------------------------------
-    phase_tools(smi, gen)
+    # 23-24. the repository's tools; phase 24's timing tools, started first,
+    # run beside phase 23 in processes of their own and launch the kernel --
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        timing_jobs = start_timing_tools(pool)
+        phase_tools(smi, gen)
+        path_launches = {"phases 4-5": launches, **phase_timing_tools(smi, timing_jobs)}
 
     log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "
@@ -2089,7 +2170,8 @@ def main() -> int:
         "route": "cuda",
         "source": "gobblet_rl_torch/kernels/csrc/rollout.cu",
         "replaces": "gobblet_rl_tpu/ops/pallas_rollout.py:176",
-        "launches": launches,
+        "launches": sum(path_launches.values()),
+        "launches_by_path": path_launches,
         "max_abs_err": err,
         "ms": statistics.median(kernel_ms),
         "plain_ms": min(plain_ms),

@@ -7,8 +7,11 @@ on spawned gloo ranks that import no JAX (``tests/torch_ranks.py``).
   ring, env state and losses.
 * N = 2 and 4: one update synced over the ranks' blocks of a batch equals
   the single-process update on the whole batch and an optax-Adam step of
-  the same loss in JAX, within 1e-5 (float32; the frameworks and the
-  ranks sum in different orders).  Two iterations keep the invariants:
+  the same loss in JAX, within 1e-5.  The nets compute in float64 over
+  float32 params (JAX under ``jax.enable_x64``): the frameworks and the
+  ranks sum in different orders, which float32 gradients carry through
+  Adam's per-weight normalisation; the loss stays float32, as the nets
+  return it.  Two iterations keep the invariants:
   ``grad_steps == 2·U``, each rank's ``filled == 2·segment_len·B/N``, one
   digest and one loss on every rank, and distinct draws per rank.
 """
@@ -54,7 +57,7 @@ def test_world_size_one_equals_unsharded():
 def optax_update(params, target, batch, config):
     """The sharded update's math in JAX (sharded_train.py:104-127) on the
     whole batch: double-DQN target, MSE, one optax Adam step."""
-    jnet, _ = flax_params(HIDDEN, True)
+    jnet, _ = flax_params(HIDDEN, True, dtype=jax.numpy.float64)
     obs, action, reward_n, done_n, obs_n, mask_n = map(jax.numpy.asarray, batch)
     q_next = masked_q(jnet.apply(target, obs_n), mask_n)
     a_star = jax.numpy.argmax(masked_q(jnet.apply(params, obs_n), mask_n), axis=-1)
@@ -86,13 +89,15 @@ def test_synced_update_and_iterations(n):
     its = spawn_ranks(torch_ranks.dqn_iterations_rank, n, (ITER, 2), device="cpu", timeout=120)
 
     # the single-process update of the port on the whole batch
-    ts = tdqn.TrainState(net=torch_qnet(params, HIDDEN, True),
-                         target_net=torch_qnet(target, HIDDEN, True),
-                         opponent_net=torch_qnet(params, HIDDEN, True), optimizer=None)
+    ts = tdqn.TrainState(net=torch_qnet(params, HIDDEN, True, torch.float64),
+                         target_net=torch_qnet(target, HIDDEN, True, torch.float64),
+                         opponent_net=torch_qnet(params, HIDDEN, True, torch.float64),
+                         optimizer=None)
     ts.optimizer = torch.optim.Adam(ts.net.parameters(), lr=config.lr, betas=(0.9, 0.999),
                                     eps=1e-8)
     whole_loss = float(tdqn.update(config, ts, tuple(map(torch.from_numpy, batch))))
-    jloss, jparams = optax_update(params, target, batch, config)
+    with jax.enable_x64(True):
+        jloss, jparams = optax_update(params, target, batch, config)
     want = qnet_params_from_flax(jax.tree.map(np.asarray, jparams), True)
     for r, res in enumerate(updates):
         assert res["grad_steps"] == 1

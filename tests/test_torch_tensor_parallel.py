@@ -10,8 +10,11 @@ twin of tests/test_sharding.py:114-250).
   net's on the rank's block of the batch; one DP x TP Q-regression step
   equals the replicated step on the whole batch; and the DP x TP update
   phase of the AlphaZero conv net (2 updates, clipped) equals the
-  data-parallel update with replicated params on the same blocks.  All
-  within 1e-5 (the row-parallel sums add in another order).
+  data-parallel update with replicated params on the same blocks, both
+  nets computing in float64 over float32 params (in float32, AdamW at lr
+  1e-2 turns the model axis's summation order into 3.5e-5 on a weight
+  whose gradient is near zero).  All within 1e-5 (the row-parallel sums
+  add in another order).
 """
 
 import jax

@@ -72,19 +72,24 @@ def mesh_rank(rank, world, dev, state_np):
 # ---------------------------------------------------------------------------
 # DQN
 # ---------------------------------------------------------------------------
-def f32_qnet(state, hidden, dev):
-    net = tmlp.QNet(hidden_sizes=hidden, dueling=True, dtype=torch.float32, device=dev)
+def f32_qnet(state, hidden, dev, dtype=torch.float32):
+    """The dueling ``QNet`` over float32 params ``state``, computing in
+    ``dtype``."""
+    net = tmlp.QNet(hidden_sizes=hidden, dueling=True, dtype=dtype, device=dev)
     net.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     return net
 
 
 def dqn_update_rank(rank, world, dev, params, target, batch, hidden, cfg_kw):
-    """One synced update on this rank's block of ``batch``."""
+    """One synced update on this rank's block of ``batch``, the nets
+    computing in float64 (Adam divides each gradient by its own RMS, so a
+    float32 sum in another order moves a near-zero gradient's step by a
+    visible fraction of the lr)."""
     mesh = mesh_mod.make_mesh(device=dev)
     cfg = tdqn.DQNConfig(**cfg_kw)
-    net = f32_qnet(params, hidden, dev)
-    ts = tdqn.TrainState(net=net, target_net=f32_qnet(target, hidden, dev),
-                         opponent_net=f32_qnet(params, hidden, dev),
+    net = f32_qnet(params, hidden, dev, torch.float64)
+    ts = tdqn.TrainState(net=net, target_net=f32_qnet(target, hidden, dev, torch.float64),
+                         opponent_net=f32_qnet(params, hidden, dev, torch.float64),
                          optimizer=torch.optim.Adam(net.parameters(), lr=cfg.lr,
                                                     betas=(0.9, 0.999), eps=1e-8))
     local = tp.shard_batch_dp(tuple(torch.from_numpy(x) for x in batch), mesh)
@@ -225,7 +230,10 @@ def _max_diff(a: dict, b: dict) -> float:
 
 def tp_rank(rank, world, dev, obs, mask, target, flats, perm):
     """TP forward, a DP x TP train step and a DP x TP AlphaZero conv update,
-    each against its replicated twin on the same data."""
+    each against its replicated twin on the same data.  The AlphaZero nets
+    compute in float64: two AdamW steps at lr 1e-2 turn float32 sums in the
+    model axis's order into 3.5e-5 on a weight whose gradient is near zero,
+    and the case measures the sharding, not that rounding."""
     out = {}
     gen = torch.Generator().manual_seed(0)
     obs, mask, target = (torch.from_numpy(x) for x in (obs, mask, target))
@@ -260,7 +268,7 @@ def tp_rank(rank, world, dev, obs, mask, target, flats, perm):
 
     cfg = taz.AZConfig(num_envs=16, batch_size=32, updates_per_iter=2, model="conv",
                        channels=16, blocks=1, max_grad_norm=0.5, lr=1e-2)
-    ref_net = tac.ConvActorCritic(channels=16, blocks=1, dtype=torch.float32, device=dev)
+    ref_net = tac.ConvActorCritic(channels=16, blocks=1, dtype=torch.float64, device=dev)
     ref_net.reset_parameters(gen)
     st = taz.AZState(net=copy.deepcopy(ref_net), optimizer=None,
                      env_state=tbc.reset_planes(cfg.num_envs, dev))
