@@ -1,0 +1,22 @@
+"""dqn.engine_ms: the ms on the device's stream of the program's
+``dqn.engine`` spans (each ply's learner step: the steps, rewards,
+auto-reset and the second seat's select) less the ``dqn.opponent`` spans
+inside them, per traced iteration, from the CUDA event pairs the spans
+record.
+
+The ``--trace 1`` pass of the ``dqn_train`` loop runs one steady iteration
+after the window under ``torch.profiler``, which turns the program's spans
+and counters on (``gobblet_rl_torch.utils.profiling``).  This reader runs
+after that loop in the same process and reads the program's
+``profiling.span_table()``; it returns ``None`` where the program records
+no such span (or, without CUDA events, no stream time)."""
+
+
+def read(data):
+    from gobblet_rl_torch.utils import profiling
+
+    table = getattr(profiling, "span_table", None)
+    span = table()["spans"].get("dqn.engine") if table else None
+    if not span or span["stream_self_ms"] is None:
+        return None
+    return span["stream_self_ms"] / span["roots"]

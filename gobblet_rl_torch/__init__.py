@@ -48,8 +48,10 @@ Layout:
   agents, read from the JAX package's blobs by a msgpack reader of its own,
   ``save`` (flax blobs by its own writer, into ``$GOBBLET_ZOO_DIR``), and
   ``host_agent``, one of them at B=1 behind the reference observation
-* ``utils/``               ``profiling`` (``trace``, ``annotate``,
-  ``Throughput``) and ``helpers``
+* ``utils/``               ``profiling`` (``trace``; ``annotate``, the
+  program's span, off unless ``torch.profiler`` records; ``count``, its
+  counters; ``span_table``, spans and counters by name with host and
+  stream ms; ``Throughput``) and ``helpers``
 * ``examples/``            the DQN, AlphaZero (with ``SearchAgentPolicy`` and
   the ``--watch`` modes; DQN's play mode), PPO and tournament command lines,
   and the host demos ``example_basic``, ``example_greedy``,

@@ -34,6 +34,7 @@ from gobblet_rl_torch.ops import batched_core as bc
 from gobblet_rl_torch.policies import greedy_jax
 from gobblet_rl_torch.train import checkpoint as ckpt
 from gobblet_rl_torch.train import defense, replay
+from gobblet_rl_torch.utils import profiling
 
 MIXED_KINDS = ("random", "greedy", "self")  # the order of mixed_weights
 
@@ -94,7 +95,8 @@ def _sel(pred, a, b):
 
 
 def make_opponent_fn(config: DQNConfig):
-    """(generator, board, current, opponent_net) -> int32[B] actions."""
+    """(generator, board, current, opponent_net) -> int32[B] actions, each
+    call inside the span ``dqn.opponent``."""
     if config.opponent == "random":
 
         def fn(generator, board, current, opp_net):
@@ -114,7 +116,12 @@ def make_opponent_fn(config: DQNConfig):
 
     else:
         raise ValueError(f"unknown opponent {config.opponent!r}")
-    return fn
+
+    def opponent(generator, board, current, opp_net):
+        with profiling.annotate("dqn.opponent"):
+            return fn(generator, board, current, opp_net)
+
+    return opponent
 
 
 def _eps_greedy(generator, q, mask_bf, eps):
@@ -142,26 +149,38 @@ def _seat_reward(rewards, seat):
 def make_learner_step(config: DQNConfig, opponent_fn):
     """One learner transition: learner ply + opponent reply + auto-reset,
     keeping every env at its learner seat's turn.  Every action is derived
-    from the legal mask, so the steps are the trusted (unchecked) kind."""
+    from the legal mask, so the steps are the trusted (unchecked) kind.
+
+    Traced, a step is the span ``dqn.engine``; each opponent call adds B
+    to the counter ``dqn.opponent_rows`` and the rows its move changes to
+    ``dqn.opponent_rows_played``."""
     lp = config.learner_player
 
     def learner_step(state, actions, generator, opp_net):
-        seat = seat_array(lp, state.current.shape[0], state.current.device)
-        s1 = bc.step_trusted(state, actions)
-        r = _seat_reward(s1.rewards, seat)
-        a_opp = opponent_fn(generator, s1.board, s1.current, opp_net)
-        s2 = bc.step_trusted(s1, a_opp)  # frozen no-op where s1.done
-        r = r + _seat_reward(s2.rewards, seat)
-        done = s2.done
-        s3 = bc.autoreset_planes(s2)
-        if lp != 0:
-            # after a reset player 0 opens; envs whose learner seat is 1
-            # need the opponent to move first
-            need = s3.current != seat
-            a0 = opponent_fn(generator, s3.board, s3.current, opp_net)
-            s4 = bc.step_trusted(s3, a0)
-            s3 = bc.PlanesState(*(_sel(need, x4, x3) for x4, x3 in zip(s4, s3)))
-        return s3, r, done
+        with profiling.annotate("dqn.engine"):
+            B = state.current.shape[0]
+            seat = seat_array(lp, B, state.current.device)
+            s1 = bc.step_trusted(state, actions)
+            r = _seat_reward(s1.rewards, seat)
+            a_opp = opponent_fn(generator, s1.board, s1.current, opp_net)
+            if profiling.enabled():
+                profiling.count("dqn.opponent_rows", B)
+                profiling.count("dqn.opponent_rows_played", (~s1.done).sum())
+            s2 = bc.step_trusted(s1, a_opp)  # frozen no-op where s1.done
+            r = r + _seat_reward(s2.rewards, seat)
+            done = s2.done
+            s3 = bc.autoreset_planes(s2)
+            if lp != 0:
+                # after a reset player 0 opens; envs whose learner seat is 1
+                # need the opponent to move first
+                need = s3.current != seat
+                a0 = opponent_fn(generator, s3.board, s3.current, opp_net)
+                if profiling.enabled():
+                    profiling.count("dqn.opponent_rows", B)
+                    profiling.count("dqn.opponent_rows_played", need.sum())
+                s4 = bc.step_trusted(s3, a0)
+                s3 = bc.PlanesState(*(_sel(need, x4, x3) for x4, x3 in zip(s4, s3)))
+            return s3, r, done
 
     return learner_step
 
@@ -186,31 +205,41 @@ def update(config: DQNConfig, ts: TrainState, batch, bank: dict | None = None,
     With a defense ``bank``, the loss adds ``defense_bc_weight`` times the
     bank's cross-entropy over the masked Q-values as logits.  ``grad_sync``
     (``parallel.mesh.GradSync``), if given, averages the gradients and the
-    loss over the data-parallel ranks before the optimizer steps."""
+    loss over the data-parallel ranks before the optimizer steps.
+
+    Traced, the step is the span ``dqn.update`` around
+    ``dqn.update.forward`` (the target and the loss),
+    ``dqn.update.backward`` (with the gradient sync) and
+    ``dqn.update.step`` (Adam and the target sync)."""
     obs, action, reward_n, done_n, obs_n, mask_n = batch
-    with torch.no_grad():
-        q_next = masked_q(ts.target_net(obs_n), mask_n)
-        if config.double:
-            # online net picks the action, target net rates it
-            a_star = masked_q(ts.net(obs_n), mask_n).argmax(dim=-1)
-            q_star = q_next.gather(-1, a_star[:, None])[:, 0]
-        else:
-            q_star = q_next.max(dim=-1).values
-        target = reward_n + (config.gamma ** config.n_step) * (~done_n) * q_star
-    q = ts.net(obs)
-    q_a = q.gather(-1, action.long()[:, None])[:, 0]
-    loss = ((q_a - target) ** 2).mean()
-    if bank is not None:
-        loss = loss + config.defense_bc_weight * defense.bank_loss(ts.net(bank["obs"]), bank)
-    ts.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if grad_sync is not None:
-        (loss,) = grad_sync(ts.net.parameters(), loss)
-    ts.optimizer.step()
-    ts.grad_steps += 1
-    if ts.grad_steps % config.target_update_freq == 0:
-        ts.target_net.load_state_dict(ts.net.state_dict())
-    return loss.detach()
+    with profiling.annotate("dqn.update"):
+        with profiling.annotate("dqn.update.forward"):
+            with torch.no_grad():
+                q_next = masked_q(ts.target_net(obs_n), mask_n)
+                if config.double:
+                    # online net picks the action, target net rates it
+                    a_star = masked_q(ts.net(obs_n), mask_n).argmax(dim=-1)
+                    q_star = q_next.gather(-1, a_star[:, None])[:, 0]
+                else:
+                    q_star = q_next.max(dim=-1).values
+                target = reward_n + (config.gamma ** config.n_step) * (~done_n) * q_star
+            q = ts.net(obs)
+            q_a = q.gather(-1, action.long()[:, None])[:, 0]
+            loss = ((q_a - target) ** 2).mean()
+            if bank is not None:
+                loss = loss + config.defense_bc_weight * defense.bank_loss(
+                    ts.net(bank["obs"]), bank)
+        with profiling.annotate("dqn.update.backward"):
+            ts.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if grad_sync is not None:
+                (loss,) = grad_sync(ts.net.parameters(), loss)
+        with profiling.annotate("dqn.update.step"):
+            ts.optimizer.step()
+            ts.grad_steps += 1
+            if ts.grad_steps % config.target_update_freq == 0:
+                ts.target_net.load_state_dict(ts.net.state_dict())
+        return loss.detach()
 
 
 def make_train_iteration(config: DQNConfig, bank: dict | None = None, grad_sync=None):
@@ -220,7 +249,14 @@ def make_train_iteration(config: DQNConfig, bank: dict | None = None, grad_sync=
     ``(env_state, buffer, mean loss)`` and updates ``ts`` and the ring in
     place.  ``mark``, if given, is called with "collect", "insert",
     "sample" and "updates" as each phase has been issued (a timer's
-    hook)."""
+    hook).
+
+    Traced, an iteration is the root span ``dqn.iteration``; each phase
+    is a span of its name (``dqn.collect``, ...) that ends where its
+    ``mark`` is called, and each ply of collect holds a ``dqn.actor``
+    (mask, features, forward, eps-greedy draw) and a ``dqn.engine``
+    (:func:`make_learner_step`); the snapshot stores stay in collect's
+    own time."""
     opponent_fn = make_opponent_fn(config)
     learner_step = make_learner_step(config, opponent_fn)
     L = config.segment_len + config.n_step - 1  # tail for a full n-step horizon
@@ -237,9 +273,10 @@ def make_train_iteration(config: DQNConfig, bank: dict | None = None, grad_sync=
         dones = torch.empty((L, B), dtype=torch.bool, device=dev)
         for t in range(L):
             boards[t], currents[t] = env_state.board, env_state.current
-            mask = bc.legal_mask_planes(env_state.board, env_state.current).t()
-            q = ts.net(_obs_bf(env_state.board, env_state.current))
-            actions[t] = _eps_greedy(generator, q, mask, config.eps_train)
+            with profiling.annotate("dqn.actor"):
+                mask = bc.legal_mask_planes(env_state.board, env_state.current).t()
+                q = ts.net(_obs_bf(env_state.board, env_state.current))
+                actions[t] = _eps_greedy(generator, q, mask, config.eps_train)
             env_state, rewards[t], dones[t] = learner_step(
                 env_state, actions[t], generator, ts.opponent_net
             )
@@ -248,20 +285,25 @@ def make_train_iteration(config: DQNConfig, bank: dict | None = None, grad_sync=
 
     def train_iteration(ts: TrainState, env_state, buffer, generator, mark=None):
         mark = mark or (lambda phase: None)
-        env_state, sseg = collect(ts, env_state, generator)
-        mark("collect")
-        buffer = replay.insert_segment(buffer, sseg, config.n_step, config.gamma,
-                                       config.segment_len)
-        mark("insert")
-        # one gather for ALL minibatches: the ring is fixed during the
-        # update phase, so this is distribution-identical to per-update draws
-        U, bs = config.update_per_collect, config.batch_size
-        flat = replay.sample(buffer, generator, bs * U)
-        mark("sample")
-        losses = [update(config, ts, tuple(x[u * bs:(u + 1) * bs] for x in flat), bank,
-                         grad_sync) for u in range(U)]
-        mark("updates")
-        return env_state, buffer, torch.stack(losses).mean()
+        with profiling.annotate("dqn.iteration"):
+            with profiling.annotate("dqn.collect"):
+                env_state, sseg = collect(ts, env_state, generator)
+            mark("collect")
+            with profiling.annotate("dqn.insert"):
+                buffer = replay.insert_segment(buffer, sseg, config.n_step, config.gamma,
+                                               config.segment_len)
+            mark("insert")
+            # one gather for ALL minibatches: the ring is fixed during the
+            # update phase, so this is distribution-identical to per-update draws
+            U, bs = config.update_per_collect, config.batch_size
+            with profiling.annotate("dqn.sample"):
+                flat = replay.sample(buffer, generator, bs * U)
+            mark("sample")
+            with profiling.annotate("dqn.updates"):
+                losses = [update(config, ts, tuple(x[u * bs:(u + 1) * bs] for x in flat), bank,
+                                 grad_sync) for u in range(U)]
+            mark("updates")
+            return env_state, buffer, torch.stack(losses).mean()
 
     return train_iteration, opponent_fn
 

@@ -36,6 +36,7 @@ from gobblet_rl_torch.models.convert import (actor_critic_params_from_flax,
 from gobblet_rl_torch.models.mlp import QNet
 from gobblet_rl_torch.policies.greedy import board_from_observation
 from gobblet_rl_torch.train import alphazero
+from gobblet_rl_torch.utils import profiling
 from gobblet_rl_torch.zoo import flax_msgpack
 
 
@@ -159,7 +160,10 @@ def host_agent(name: str, seed: int = 0, device=None, **overrides):
     behind the reference's (3, 3, 13) observation.  A ``torch.Generator``
     seeded with ``seed`` feeds the policy's draws; the zoo's evaluation
     policies draw nothing unless ``overrides`` ask for it (``eps`` > 0,
-    ``sample=True``)."""
+    ``sample=True``).  Traced, a move is the root span ``zoo.move`` around
+    ``zoo.decode`` (the observation to a board), ``zoo.upload`` (the board
+    and seat to the device), ``zoo.policy`` (the policy's launches) and
+    ``zoo.readback`` (the action back to the host)."""
     dev = resolve_device(device)
     pol = policy(name, device=dev, **overrides)
     generator = torch.Generator(device=dev)
@@ -167,9 +171,15 @@ def host_agent(name: str, seed: int = 0, device=None, **overrides):
 
     class _ZooAgent:
         def compute_action(self, obs, mask):
-            board, agent = board_from_observation(np.asarray(obs))
-            lane_major = torch.from_numpy(board).to(dev)[..., None]          # [3, 9, 1]
-            current = torch.tensor([agent], dtype=torch.int32, device=dev)
-            return int(pol(generator, lane_major, current)[0])
+            with profiling.annotate("zoo.move"):
+                with profiling.annotate("zoo.decode"):
+                    board, agent = board_from_observation(np.asarray(obs))
+                with profiling.annotate("zoo.upload"):
+                    lane_major = torch.from_numpy(board).to(dev)[..., None]      # [3, 9, 1]
+                    current = torch.tensor([agent], dtype=torch.int32, device=dev)
+                with profiling.annotate("zoo.policy"):
+                    actions = pol(generator, lane_major, current)
+                with profiling.annotate("zoo.readback"):
+                    return int(actions[0])
 
     return _ZooAgent()
