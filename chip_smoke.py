@@ -155,7 +155,20 @@ its plain PyTorch version:
     ``0 <= mfu <= 1``, the rollout kernel launched by the bench's headline
     section, the scaling summary at one device; their lines and seconds.
 
-Phases 7-24 each print one JSON line with the card's name and power limit
+25. the uniform legal draw kernel (``kernels/csrc/draw.cu``): its build's
+    registers and spills and its machine instructions per env; against
+    its plain version bit for bit, on random-game positions at every depth
+    and boards with 0, 2 and 6 legal actions, at 4,099 and 2,097,152 envs;
+    its time at 2,097,152 envs beside its bound (the bytes the function
+    reads and writes; its machine instructions at the issue rate beside it,
+    a diagnostic of the compiled code), the plain version's and the eager
+    mask-and-Gumbel draw's it replaces; and its launches in one
+    ``dqn_greedy.random-2m``-wide iteration (2,097,152 envs, both seats,
+    the random opponent): 54.  The kernel line counts its launches by
+    path: phases 4-5 (the main path's DQN against the random opponent)
+    and that iteration, not its checks and timed calls.
+
+Phases 7-25 each print one JSON line with the card's name and power limit
 and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
@@ -255,6 +268,12 @@ HOST_AZ_SIMS, HOST_AZ_MOVES = 128, 2
 # phase 5's width split over them, AZ and PPO at launch_local's widths, a
 # TP forward and step of QNet and the census of one DP iteration.
 PAR_BACKEND, PAR_RANK_BACKEND = "nccl", "gloo"
+# The draw kernel: its checks' widths and plies, the timed calls, and the
+# iteration of the benchmark cell dqn_greedy.random-2m whose launches it
+# counts (18 plies: the actor's exploration and two opponent calls each).
+DRAW_B, DRAW_RAGGED_B, DRAW_PLIES, DRAW_REPEATS = 2097152, 4099, 37, 20
+DRAW_DQN = dict(DQN, num_envs=2097152, buffer_size=33554432, learner_player="both")
+DRAW_BYTES_PER_ENV = 27 + 4 + 4   # board and mover read, action written
 PAR_AZ = dict(AZ, num_envs=AZ_RESUME_ENVS, segment_len=AZ_RESUME_SEGMENT)
 PAR_PPO_SMALL = dict(num_envs=64, segment_len=8, shared_policy=True, learner_player="both",
                      opponent="self", hidden_sizes=(), epochs_per_iter=2, minibatches=4, lr=1e-3)
@@ -327,6 +346,16 @@ def sass_functions(lib: Path) -> dict[str, list[tuple[int, str, str]]]:
     return funcs
 
 
+def kernel_body(lib: Path, function: str) -> tuple[str, list[tuple[int, str, str]]]:
+    """(mangled name, instructions) of the one kernel in ``lib`` whose
+    mangled name contains ``function``; raises if not exactly one does."""
+    matches = {k: v for k, v in sass_functions(lib).items() if function in k}
+    if len(matches) != 1:
+        raise RuntimeError(f"{len(matches)} kernels in {lib.name} match {function!r}")
+    (kernel, body), = matches.items()
+    return kernel, body
+
+
 def sass_loop(lib: Path, function: str) -> dict:
     """The largest loop of the kernel whose mangled name contains
     ``function``: the span from a backward branch's target to the branch.
@@ -334,10 +363,7 @@ def sass_loop(lib: Path, function: str) -> dict:
     instruction of the span but ``NOP``: the issue slots one pass takes.
     Raises if the span holds another branch, which would make the count
     depend on the path taken."""
-    matches = {k: v for k, v in sass_functions(lib).items() if function in k}
-    if len(matches) != 1:
-        raise RuntimeError(f"{len(matches)} kernels in {lib.name} match {function!r}")
-    (kernel, body), = matches.items()
+    kernel, body = kernel_body(lib, function)
     best: list[tuple[int, str, str]] = []
     for addr, op, args in body:
         m = re.search(r"0x([0-9a-f]+)", args)
@@ -1785,6 +1811,141 @@ def phase_timing_tools(smi: str, jobs: dict) -> dict:
     return launches
 
 
+def draw_positions(batch: int, gen: torch.Generator):
+    """(board, current) of ``batch`` envs: random-game positions at every
+    depth (``DRAW_PLIES`` plies with auto-reset), then the empty board and
+    boards with 0, 2 and 6 legal actions (the other player's large pieces
+    on all cells but 0, 1 or 3, which hold its medium piece; the 2-action
+    board once more for player 1)."""
+    from gobblet_rl_torch.ops import batched_core as bc
+
+    dev = gen.device
+    state, _ = bc.rollout_random(bc.reset_planes(batch - 5, dev), gen, DRAW_PLIES)
+    special = torch.zeros((3, 9, 5), dtype=torch.int8, device=dev)
+    for env, free in ((1, 0), (2, 1), (3, 3), (4, 1)):
+        special[2, free:, env] = -5
+        special[1, :free, env] = -3
+    special[..., 4] *= -1
+    cur = torch.tensor([0, 0, 0, 0, 1], dtype=torch.int32, device=dev)
+    return (torch.cat([state.board, special], -1).contiguous(),
+            torch.cat([state.current, cur]).contiguous())
+
+
+def sass_body(lib: Path, function: str) -> dict:
+    """The instructions of the one kernel in ``lib`` whose mangled name
+    contains ``function``, but ``NOP``: a loop-free kernel's issue slots
+    per thread, its early exit's two or three included."""
+    kernel, body = kernel_body(lib, function)
+    ops = collections.Counter(op.split(".")[0] for _, op, _ in body if op != "NOP")
+    return {"kernel": kernel, "instructions": sum(ops.values()),
+            "opcodes": dict(ops.most_common())}
+
+
+def phase_draw(smi: str, gen: torch.Generator) -> dict:
+    """25. the uniform legal draw kernel; returns its kernel-table entry."""
+    from gobblet_rl_torch.kernels import build, draw
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.train import dqn, replay
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    lib, nvcc_log = build.build("draw")
+    ptxas = [line.strip() for line in nvcc_log.splitlines()
+             if "registers" in line or "spill" in line]
+    check(all(n == "0" for n in re.findall(r"(\d+) bytes spill", nvcc_log)),
+          "draw: ptxas reports no spills")
+    try:
+        sass = sass_body(lib, "draw_kernel")
+    except FileNotFoundError:
+        sass = None
+    out = {"metric": "draw_kernel", "device": smi, "library": lib.name, "ptxas": ptxas,
+           "sass_per_env": sass["instructions"] if sass else "not measured",
+           "sass_opcodes": sass["opcodes"] if sass else None}
+
+    for batch in (DRAW_RAGGED_B, DRAW_B):
+        board, cur = draw_positions(batch, gen)
+        for _ in range(3):
+            saved = gen.get_state()
+            kernel = draw.random_legal_actions(board, cur, gen)
+            gen.set_state(saved)
+            plain = draw.random_legal_actions_plain(board, cur, draw.draw_key(gen, dev))
+            check(torch.equal(kernel, plain), f"draw: kernel == plain at B={batch}")
+        mask = bc.legal_mask_planes(board, cur)
+        legal = mask[kernel.long(), torch.arange(batch, device=dev)]
+        check(bool((legal | (mask.sum(0) == 0)).all()), f"draw: every action legal at B={batch}")
+        out[f"bit_identical_b{batch}"] = True
+
+    # times at DRAW_B: the kernel alone on a fixed key, the whole call (key
+    # draw and kernel), the plain version and the eager draw it replaces
+    key = draw.draw_key(gen, dev)
+    act = torch.empty_like(cur)
+    launch = draw._launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel_only():
+        for _ in range(DRAW_REPEATS):
+            check(launch(board.data_ptr(), cur.data_ptr(), key.data_ptr(), act.data_ptr(),
+                         DRAW_B, stream) == 0, "draw: launch")
+
+    def whole_call():
+        for _ in range(DRAW_REPEATS):
+            draw.random_legal_actions(board, cur, gen)
+
+    def eager():
+        for _ in range(DRAW_REPEATS):
+            bc.sample_random_lm(gen, bc.legal_mask_planes(board, cur))
+
+    for name, fn, repeats in (("ms", kernel_only, 5), ("call_ms", whole_call, 5),
+                              ("replaced_ms", eager, 3)):
+        fn()
+        _, ms = timed(fn, repeats)
+        out[name] = min(ms) / DRAW_REPEATS
+        out[f"{name}_all"] = [m / DRAW_REPEATS for m in ms]
+    timed(lambda: draw.random_legal_actions_plain(board, cur, key), 1)
+    _, ms = timed(lambda: draw.random_legal_actions_plain(board, cur, key), 3)
+    out["plain_ms"] = min(ms)
+    sm_mhz = float(smi_query("clocks.max.sm").split()[0])
+    out["bytes_ms"] = 1e3 * (DRAW_B * DRAW_BYTES_PER_ENV + 16) / PEAK_HBM_BYTES
+    if sass:
+        alu = sum(n for op, n in sass["opcodes"].items() if op in INT_ALU_OPS)
+        out["sass_issue_ms"] = issue_floor_ms(sass["instructions"], alu, DRAW_B, sm_mhz)
+    else:
+        out["sass_issue_ms"] = "not measured"
+    del board, cur, act, mask
+
+    # the launches of one iteration of the 2M cell's width
+    config = dqn.DQNConfig(**DRAW_DQN)
+    ts = dqn.init_train_state(config, dqn.make_net(config, dev), gen)
+    it, opp_fn = dqn.make_train_iteration(config)
+    env_state = dqn.init_env_state(config, opp_fn, ts.opponent_net, gen)
+    buffer = replay.make_buffer(config.buffer_size, dev)
+    before = draw.random_legal_actions.launches
+    env_state, buffer, loss = it(ts, env_state, buffer, gen)
+    check(math.isfinite(float(loss)), "draw: the 2M iteration's loss finite")
+    out["launches_2m_iteration"] = draw.random_legal_actions.launches - before
+    check(out["launches_2m_iteration"] == 3 * (config.segment_len + config.n_step - 1),
+          "draw: 54 launches in one 2M-wide iteration")
+    del ts, env_state, buffer
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps(out))
+    return {
+        "name": "random_legal_actions",
+        "route": "cuda",
+        "source": "gobblet_rl_torch/kernels/csrc/draw.cu",
+        "replaces": None,
+        "launches_2m_iteration": out["launches_2m_iteration"],
+        "ms": out["ms"],
+        "call_ms": out["call_ms"],
+        "plain_ms": out["plain_ms"],
+        "replaced_ms": out["replaced_ms"],
+        "bound_ms": out["bytes_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "sass_per_env": out["sass_per_env"],
+        "sass_issue_ms": out["sass_issue_ms"],
+    }
+
+
 def phase_parallel(smi: str, gen: torch.Generator) -> None:
     """22. the parallel slice: world size 1, then two ranks on one card."""
     import torch.distributed as dist
@@ -1954,7 +2115,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from gobblet_rl_torch.kernels import build
+    from gobblet_rl_torch.kernels import build, draw
     from gobblet_rl_torch.kernels import rollout as R
     from gobblet_rl_torch.ops import batched_core as bc
     from gobblet_rl_torch.train import dqn, replay
@@ -2026,6 +2187,7 @@ def main() -> int:
 
     # 4 + 5. the main path; the launch counts cover exactly these phases ----
     R.rollout_random_fused.launches = 0
+    draw.random_legal_actions.launches = 0
     state = bc.reset_planes(ROLLOUT_B, dev)
     kb, kc = state.board, state.current
     seed = 0
@@ -2105,6 +2267,8 @@ def main() -> int:
     del ts
     launches = R.rollout_random_fused.launches
     check(launches > 0, "the main path launched the rollout kernel")
+    draw_launches = draw.random_legal_actions.launches
+    check(draw_launches > 0, "the main path launched the draw kernel")
 
     # 6. kernel vs plain at the main path's shape, outside the counted run --
     kb, kc, seed = kernel_start
@@ -2161,6 +2325,11 @@ def main() -> int:
         phase_tools(smi, gen)
         path_launches = {"phases 4-5": launches, **phase_timing_tools(smi, timing_jobs)}
 
+    # 25. the uniform legal draw kernel -----------------------------------
+    draw_entry = phase_draw(smi, gen)
+    draw_paths = {"phases 4-5": draw_launches,
+                  "phase 25 2M iteration": draw_entry.pop("launches_2m_iteration")}
+
     log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "
         f"{ops_ms / statistics.median(kernel_ms):.1%} of the larger")
@@ -2179,7 +2348,8 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,
         "sass_per_env_ply": sass if counts is not None else "not measured",
-    }]}))
+    }, {**draw_entry, "launches": sum(draw_paths.values()),
+        "launches_by_path": draw_paths}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from gobblet_rl_torch.device import resolve_device
+from gobblet_rl_torch.kernels import draw
 from gobblet_rl_torch.models.mlp import QNet, masked_argmax, masked_q
 from gobblet_rl_torch.ops import batched_core as bc
 from gobblet_rl_torch.policies import greedy_jax
@@ -100,7 +101,7 @@ def make_opponent_fn(config: DQNConfig):
     if config.opponent == "random":
 
         def fn(generator, board, current, opp_net):
-            return bc.sample_random_lm(generator, bc.legal_mask_planes(board, current))
+            return draw.random_legal_actions(board, current, generator)
 
     elif config.opponent == "greedy":
 
@@ -124,11 +125,12 @@ def make_opponent_fn(config: DQNConfig):
     return opponent
 
 
-def _eps_greedy(generator, q, mask_bf, eps):
+def _eps_greedy(generator, q, mask_bf, board, current, eps):
     """Masked epsilon-greedy: the masked argmax, replaced with probability
-    ``eps`` by a uniform legal action."""
+    ``eps`` by a uniform legal action of the position (``board``,
+    ``current``) that ``mask_bf`` masks."""
     greedy = masked_argmax(q, mask_bf)
-    rand = bc.sample_random_lm(generator, mask_bf.t())
+    rand = draw.random_legal_actions(board, current, generator)
     explore = torch.rand(q.shape[0], generator=generator, device=q.device) < eps
     return torch.where(explore, rand, greedy)
 
@@ -276,7 +278,8 @@ def make_train_iteration(config: DQNConfig, bank: dict | None = None, grad_sync=
             with profiling.annotate("dqn.actor"):
                 mask = bc.legal_mask_planes(env_state.board, env_state.current).t()
                 q = ts.net(_obs_bf(env_state.board, env_state.current))
-                actions[t] = _eps_greedy(generator, q, mask, config.eps_train)
+                actions[t] = _eps_greedy(generator, q, mask, env_state.board,
+                                         env_state.current, config.eps_train)
             env_state, rewards[t], dones[t] = learner_step(
                 env_state, actions[t], generator, ts.opponent_net
             )
@@ -343,7 +346,8 @@ def make_eval_fn(config: DQNConfig, opponent_fn):
         for _ in range(num_steps):
             mask = bc.legal_mask_planes(state.board, state.current)
             q = net(_obs_bf(state.board, state.current))
-            a_learn = _eps_greedy(generator, q, mask.t(), config.eps_eval)
+            a_learn = _eps_greedy(generator, q, mask.t(), state.board, state.current,
+                                  config.eps_eval)
             a_opp = opponent_fn(generator, state.board, state.current, opp_net)
             stepped = bc.step_trusted(state, torch.where(state.current == seat, a_learn, a_opp))
             counts += torch.stack([

@@ -35,6 +35,7 @@ os.environ.setdefault("SDL_AUDIODRIVER", "dummy")
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running parity tests (opt in with -m slow)")
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,6 +1,6 @@
 """The SASS reader of chip_smoke.py on a listing in cuobjdump's format: the
 main loop of the named kernel is the span from a backward branch to its
-target.  cuobjdump itself runs only where the CUDA toolkit is, beside the
+target; a loop-free kernel counts its whole body.  cuobjdump itself runs only where the CUDA toolkit is, beside the
 card."""
 
 import importlib.util
@@ -91,3 +91,13 @@ def test_sass_counts_without_cuobjdump_is_none_and_parse_faults_raise(monkeypatc
     _fake_cuobjdump(monkeypatch, LISTING.replace("@!P1 BRA 0x20", "@!P1 BRA 0x80"))
     with pytest.raises(RuntimeError, match="no loop"):
         chip_smoke.sass_counts(Path("lib.so"))
+
+
+def test_sass_body_counts_a_whole_kernel(listing):
+    """The draw kernel has no loop: every instruction of its body counts,
+    but ``NOP``."""
+    body = chip_smoke.sass_body(Path("lib.so"), "rollout_kernelILb1E")
+    assert body["instructions"] == 2 and body["opcodes"] == {"SHF": 1, "BRA": 1}
+    assert chip_smoke.sass_body(Path("lib.so"), "rollout_kernelILb0E")["instructions"] == 9
+    with pytest.raises(RuntimeError):
+        chip_smoke.sass_body(Path("lib.so"), "rollout_kernel")  # two kernels match

@@ -122,7 +122,8 @@ def replayed_counts(config):
         for _ in range(L):
             mask = bc.legal_mask_planes(env.board, env.current).t()
             q = ts.net(dqn._obs_bf(env.board, env.current))
-            s1 = bc.step_trusted(env, dqn._eps_greedy(gen, q, mask, config.eps_train))
+            s1 = bc.step_trusted(env, dqn._eps_greedy(gen, q, mask, env.board, env.current,
+                                                      config.eps_train))
             s2 = bc.step_trusted(s1, opponent_fn(gen, s1.board, s1.current, ts.opponent_net))
             rows += B
             played += int((s2.board != s1.board).flatten(0, 1).any(0).sum())
@@ -168,7 +169,9 @@ def test_iteration_spans_and_counters(tmp_path, learner_player):
     for a, b in zip(env, env_r):
         assert torch.equal(a, b)       # the replay followed the iteration's draws
     assert rows == calls * L * B
-    assert table["counters"] == {"dqn.opponent_rows": rows, "dqn.opponent_rows_played": played}
+    # the actor's exploration draw a ply and each opponent call, on the CPU
+    assert table["counters"] == {"dqn.opponent_rows": rows, "dqn.opponent_rows_played": played,
+                                 "draw.plain_rows": L * B + rows}
     assert 0 < played < rows
 
     (path,) = tmp_path.glob("trace-*.json")
@@ -192,7 +195,9 @@ def test_init_and_evaluate_record_the_opponent():
     assert table["roots"] == 4
     assert {k: (v["calls"], v["roots"]) for k, v in table["spans"].items()} == \
         {"dqn.opponent": (4, 4)}
-    assert table["counters"] == {}
+    # the random opponent's draws: the bootstrap's 16 rows and 3 of 8; the
+    # evaluation's own draws run outside any span
+    assert table["counters"] == {"draw.plain_rows": 16 + 3 * 8}
 
 
 def test_zoo_move_spans():
