@@ -25,6 +25,16 @@ descent takes at most ``min(s, 40)`` steps and the backup at most one
 more; a lane that has stopped stays frozen.  Both loops here run to that
 bound and stop as soon as no lane is live, one host sync a step, which
 gives the JAX loop's result bit for bit.
+
+Tracing (``utils/profiling.py``, off unless ``torch.profiler`` records):
+``az.search`` ⊃ ``az.root``, ``az.descend``, ``az.expand`` (⊃ ``az.net``,
+every net evaluation, and ``az.wins``, every one-move win check) and
+``az.backup``; the root's evaluation is an ``az.net`` inside ``az.root``
+and the final pick's win check an ``az.wins`` inside ``az.search``.
+Counters: ``az.searches``, ``az.net_rows`` (B an evaluation),
+``az.descend_trips`` and ``az.backup_trips`` (the host syncs the loops
+issue), ``az.lane_steps`` (B a descent step) and ``az.live_steps`` (the
+lanes live at each descent step, summed on the device).
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from gobblet_rl_torch.search.gumbel import (
     _phase_table,
     _sigma,
 )
+from gobblet_rl_torch.utils import profiling
 
 MAX_DEPTH = 40  # the descent's depth cap (gumbel_lm.py:241 of the JAX package)
 
@@ -81,21 +92,24 @@ def _mixed_value_lm(v_hat, q, n, priors, legal):
 def _evaluate_lm(net, board: torch.Tensor, player: torch.Tensor):
     """(priors [54, B], tanh(value) [B], legal mask [54, B]) of boards
     int8[3, 9, B]; ``net`` maps obs int8[B, 117] to (logits, value)."""
-    logits, value = net(bc.features_lm(board, player).t())
-    mask = bc.legal_mask_planes(board, player)
-    priors = torch.softmax(torch.where(mask, logits.t(), -1e9), dim=0)
-    return priors, torch.tanh(value), mask
+    with profiling.annotate("az.net"):
+        profiling.count("az.net_rows", player.shape[0])
+        logits, value = net(bc.features_lm(board, player).t())
+        mask = bc.legal_mask_planes(board, player)
+        priors = torch.softmax(torch.where(mask, logits.t(), -1e9), dim=0)
+        return priors, torch.tanh(value), mask
 
 
 def _winning_actions_lm(board: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
     """bool[54, B]: the legal immediate wins per lane (the 54 actions ride a
     folded 54·B lane axis of one engine call, lane ``a·B + b``)."""
     B = player.shape[0]
-    mask = bc.legal_mask_planes(board, player)
-    actions = torch.arange(A, dtype=torch.int32, device=board.device).repeat_interleave(B)
-    stepped = bc.apply_action_unchecked(board.repeat(1, 1, A), player.repeat(A), actions)
-    win = bc.winner_planes(bc.flat_planes(stepped)).view(A, B)
-    return mask & (win == bc.player_sign_planes(player)[None])
+    with profiling.annotate("az.wins"):
+        mask = bc.legal_mask_planes(board, player)
+        actions = torch.arange(A, dtype=torch.int32, device=board.device).repeat_interleave(B)
+        stepped = bc.apply_action_unchecked(board.repeat(1, 1, A), player.repeat(A), actions)
+        win = bc.winner_planes(bc.flat_planes(stepped)).view(A, B)
+        return mask & (win == bc.player_sign_planes(player)[None])
 
 
 def _apply_and_winner_lm(board, player, action):
@@ -140,14 +154,22 @@ class _Tree:
         k deep, so ``trips`` = min(sim, depth cap) is also the cap."""
         node = torch.zeros_like(root_action)
         action, live = root_action, None
+        tracing, steps, syncs = profiling.enabled(), 0, 0
         for step in range(trips):
-            if step and not bool(live.any()):
-                break
+            if step:
+                syncs += 1
+                if not bool(live.any()):
+                    break
             child = self.children[node, action, self.lanes]
             advance = ~_scal(self.terminal, node) & (child >= 0)
             live = advance if live is None else live & advance
             node = torch.where(live, child, node)
             action = torch.where(live, select(node), action)
+            steps += 1
+            if tracing:   # a device sum, only while tracing
+                profiling.count("az.live_steps", live.sum())
+        profiling.count("az.descend_trips", syncs)
+        profiling.count("az.lane_steps", steps * self.lanes.shape[0])
         return node, action
 
     def expand(self, sim: int, node, action, net):
@@ -185,9 +207,12 @@ class _Tree:
         """Walk parent pointers to the root, adding a visit and the
         sign-flipped value to each edge on the way.  A lane at the root
         (node 0) or past it (-1) has nothing left to add."""
+        syncs = 0
         for step in range(trips):
-            if step and not bool((node > 0).any()):
-                break
+            if step:
+                syncs += 1
+                if not bool((node > 0).any()):
+                    break
             nc = node.clamp(min=0)
             par = torch.where(node > 0, _scal(self.parent, nc), -1)
             act = _scal(self.pa, nc)
@@ -198,6 +223,7 @@ class _Tree:
             self.N[edge] += upd.to(torch.float32)
             self.W[edge] += torch.where(upd, value, 0.0)
             node = par
+        profiling.count("az.backup_trips", syncs)
 
 
 # ---------------------------------------------------------------------------
@@ -215,18 +241,27 @@ def gumbel_search_lm(net, board_lm: torch.Tensor, players: torch.Tensor,
 
     ``noise`` (f32[54, B], optional) replaces the root Gumbel field drawn
     from ``generator``."""
+    with profiling.annotate("az.search"):
+        profiling.count("az.searches", 1)
+        return _search(net, board_lm, players, generator, config, noise)
+
+
+def _search(net, board_lm, players, generator, config, noise):
+    """The body of :func:`gumbel_search_lm`, inside its span."""
     B, dev = players.shape[0], players.device
     phase = _phase_table(config.num_sims, config.max_considered)
     counts = _considered_counts(config.max_considered, int(phase[-1]) + 1)
-    tree = _Tree(config.num_sims, board_lm, players)
-    N, W = tree.N, tree.W
+    with profiling.annotate("az.root"):
+        tree = _Tree(config.num_sims, board_lm, players)
+        N, W = tree.N, tree.W
 
-    priors0, value0, mask0 = _evaluate_lm(net, board_lm, players)
-    tree.P[0], tree.node_value[0], tree.legal[0] = priors0, value0, mask0
+        priors0, value0, mask0 = _evaluate_lm(net, board_lm, players)
+        tree.P[0], tree.node_value[0], tree.legal[0] = priors0, value0, mask0
 
-    g = noise if noise is not None else bc.gumbel_field(generator, (A, B), dev)
-    logp0 = torch.where(mask0, torch.log(priors0.clamp(min=1e-12)), -torch.inf)
-    considered = mask0 & _top_k_mask_lm(torch.where(mask0, g + logp0, -torch.inf), int(counts[0]))
+        g = noise if noise is not None else bc.gumbel_field(generator, (A, B), dev)
+        logp0 = torch.where(mask0, torch.log(priors0.clamp(min=1e-12)), -torch.inf)
+        considered = mask0 & _top_k_mask_lm(torch.where(mask0, g + logp0, -torch.inf),
+                                            int(counts[0]))
 
     def root_score():
         n0, w0 = N[0], W[0]
@@ -246,16 +281,20 @@ def gumbel_search_lm(net, board_lm: torch.Tensor, players: torch.Tensor,
         return score.argmax(0)
 
     for sim in range(config.num_sims):
-        sc = root_score()
-        if sim and phase[sim] != phase[sim - 1]:   # halve by the current score
-            k = int(counts[phase[sim]])
-            considered = considered & _top_k_mask_lm(torch.where(considered, sc, -torch.inf), k)
-        # fewest visits first among the considered actions
-        root_action = torch.where(considered, -N[0] * 1e4 + sc, -torch.inf).argmax(0)
         trips = min(sim, MAX_DEPTH)
-        node, action = tree.descend(root_action, interior_action, trips)
-        start, value = tree.expand(sim, node, action, net)
-        tree.backup(start, value, trips + 1)
+        with profiling.annotate("az.descend"):
+            sc = root_score()
+            if sim and phase[sim] != phase[sim - 1]:   # halve by the current score
+                k = int(counts[phase[sim]])
+                considered = considered & _top_k_mask_lm(torch.where(considered, sc, -torch.inf),
+                                                         k)
+            # fewest visits first among the considered actions
+            root_action = torch.where(considered, -N[0] * 1e4 + sc, -torch.inf).argmax(0)
+            node, action = tree.descend(root_action, interior_action, trips)
+        with profiling.annotate("az.expand"):
+            start, value = tree.expand(sim, node, action, net)
+        with profiling.annotate("az.backup"):
+            tree.backup(start, value, trips + 1)
 
     n0, w0 = N[0], W[0]
     root_q = torch.where(n0 > 0, w0 / n0.clamp(min=1.0), -torch.inf)

@@ -38,6 +38,7 @@ from gobblet_rl_torch.ops import batched_core as bc
 from gobblet_rl_torch.search import gumbel, gumbel_lm, mcts, mcts_lm
 from gobblet_rl_torch.train import checkpoint as ckpt
 from gobblet_rl_torch.train.dqn import _obs_bf
+from gobblet_rl_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,26 +153,37 @@ def _make_gumbel_segment(config: AZConfig):
     Gumbel noise (no Dirichlet, no temperature schedule) and the policy
     target is the completed-Q improved policy.  ``segment`` takes an
     optional ``noise`` f32[segment_len, 54, B], one root field a ply, in
-    place of the generator's draws."""
+    place of the generator's draws.
+
+    ``ply``, if given, is called after each ply's rows are written as
+    ``ply(t, state, generator_state, out, traj)``: the ply's root state,
+    the generator's state before its search (so the root field can be
+    redrawn), the search's outputs ``(actions, pi, q, visits, root_value)``
+    and the trajectory being filled (a checker's hook)."""
     gcfg = gumbel.GumbelConfig(num_sims=config.num_sims, max_considered=config.max_considered)
 
     @torch.no_grad()
-    def segment(net, env_state, generator, noise=None):
+    def segment(net, env_state, generator, noise=None, ply=None):
         L, B, dev = config.segment_len, env_state.current.shape[0], env_state.current.device
         traj = _empty_traj(L, B, dev, gumbel_search=True)
         state = env_state
         for t in range(L):
-            actions, pi, _, _, root_v = gumbel_lm.gumbel_search_lm(
-                net, state.board, state.current, generator, gcfg,
-                noise=None if noise is None else noise[t])
-            traj["obs"][t] = _obs_bf(state.board, state.current)
-            traj["mask"][t] = bc.legal_mask_planes(state.board, state.current).t()
-            traj["pi"][t], traj["player"][t] = pi, state.current
-            # mover-perspective root value -> absolute sign (+1 = player 0)
-            traj["v_signed"][t] = root_v * torch.where(state.current == 0, 1.0, -1.0)
-            s1 = bc.step_trusted(state, actions)   # search actions are mask-legal
-            traj["done"][t], traj["winner"][t] = s1.done, s1.winner
-            state = bc.autoreset_planes(s1)
+            gen_state = None if ply is None or generator is None else generator.get_state()
+            out = gumbel_lm.gumbel_search_lm(net, state.board, state.current, generator, gcfg,
+                                             noise=None if noise is None else noise[t])
+            actions, pi, _, _, root_v = out
+            with profiling.annotate("az.step"):
+                traj["obs"][t] = _obs_bf(state.board, state.current)
+                traj["mask"][t] = bc.legal_mask_planes(state.board, state.current).t()
+                traj["pi"][t], traj["player"][t] = pi, state.current
+                # mover-perspective root value -> absolute sign (+1 = player 0)
+                traj["v_signed"][t] = root_v * torch.where(state.current == 0, 1.0, -1.0)
+                s1 = bc.step_trusted(state, actions)   # search actions are mask-legal
+                traj["done"][t], traj["winner"][t] = s1.done, s1.winner
+                next_state = bc.autoreset_planes(s1)
+            if ply is not None:
+                ply(t, state, gen_state, out, traj)
+            state = next_state
         return state, traj
 
     return segment
@@ -293,24 +305,33 @@ def make_update_phase(config: AZConfig, grad_sync=None, grad_sq_norm=None):
 
 
 def make_train_iteration(config: AZConfig):
-    """``train_iteration(st, generator, mark=None) -> stats`` (device
-    scalars): one segment, the outcome backfill and the update phase, in
-    place on ``st``.  ``mark``, if given, is called with "segment",
-    "outcomes" and "updates" as each phase has been issued (a timer's
-    hook)."""
+    """``train_iteration(st, generator, mark=None, ply=None) -> stats``
+    (device scalars): one segment, the outcome backfill and the update
+    phase, in place on ``st``.  ``mark``, if given, is called with
+    "segment", "outcomes" and "updates" as each phase has been issued (a
+    timer's hook); ``ply`` is the Gumbel segment's per-ply hook
+    (:func:`_make_gumbel_segment`)."""
     segment = make_selfplay_segment(config)
     update_phase = make_update_phase(config)
 
-    def train_iteration(st: AZState, generator: torch.Generator, mark=None):
+    def train_iteration(st: AZState, generator: torch.Generator, mark=None, ply=None):
         mark = mark or (lambda phase: None)
-        env_state, traj = segment(st.net, st.env_state, generator)
-        mark("segment")
-        bootstrap = traj.get("v_signed") if config.bootstrap_unfinished else None
-        z, valid = assign_outcomes(traj["done"], traj["winner"], traj["player"], bootstrap)
-        flat = flatten_segment(traj, z, valid)
-        mark("outcomes")
-        losses, p_ls, v_ls = update_phase(st.net, st.optimizer, flat, generator)
-        mark("updates")
+        with profiling.annotate("az.iteration"):
+            with profiling.annotate("az.segment"):
+                if ply is None:   # the PUCT segment takes no hook
+                    env_state, traj = segment(st.net, st.env_state, generator)
+                else:
+                    env_state, traj = segment(st.net, st.env_state, generator, ply=ply)
+            mark("segment")
+            with profiling.annotate("az.outcomes"):
+                bootstrap = traj.get("v_signed") if config.bootstrap_unfinished else None
+                z, valid = assign_outcomes(traj["done"], traj["winner"], traj["player"],
+                                           bootstrap)
+                flat = flatten_segment(traj, z, valid)
+            mark("outcomes")
+            with profiling.annotate("az.updates"):
+                losses, p_ls, v_ls = update_phase(st.net, st.optimizer, flat, generator)
+            mark("updates")
         st.env_state = env_state
         done, winner = traj["done"], traj["winner"]
         return {
