@@ -168,7 +168,19 @@ its plain PyTorch version:
     path: phases 4-5 (the main path's DQN against the random opponent)
     and that iteration, not its checks and timed calls.
 
-Phases 7-25 each print one JSON line with the card's name and power limit
+26. the one-move win check kernel (``kernels/csrc/wins.cu``): its build's
+    registers and spills and its machine instructions per lane; against
+    its plain version bit for bit, on random-game positions at every depth
+    and boards just won, at 4,099 and 524,288 lanes; its time at 524,288
+    lanes beside its bound (the bytes the function reads and writes; its
+    machine instructions at the issue rate beside it, a diagnostic of the
+    compiled code) and the plain version's, the 54-fold engine call it
+    replaces; and its launches in one search of the
+    ``alphazero_gumbel32.selfplay-512k`` cell's width (524,288 roots, 32
+    simulations, the bfloat16 conv net): 33, one an expansion and the
+    final pick's.
+
+Phases 7-26 each print one JSON line with the card's name and power limit
 and the phase's seconds.
 
 Any failed check raises, so the exit code is non-zero.  The last line is
@@ -274,6 +286,11 @@ PAR_BACKEND, PAR_RANK_BACKEND = "nccl", "gloo"
 DRAW_B, DRAW_RAGGED_B, DRAW_PLIES, DRAW_REPEATS = 2097152, 4099, 37, 20
 DRAW_DQN = dict(DQN, num_envs=2097152, buffer_size=33554432, learner_player="both")
 DRAW_BYTES_PER_ENV = 27 + 4 + 4   # board and mover read, action written
+# The win check kernel: its checks' widths, the timed calls, and the width
+# of the benchmark cell alphazero_gumbel32.selfplay-512k, at which one
+# search counts its launches.
+WINS_B, WINS_RAGGED_B, WINS_REPEATS = 524288, 4099, 20
+WINS_BYTES_PER_LANE = 27 + 4 + 54   # board and mover read, 54 bools written
 PAR_AZ = dict(AZ, num_envs=AZ_RESUME_ENVS, segment_len=AZ_RESUME_SEGMENT)
 PAR_PPO_SMALL = dict(num_envs=64, segment_len=8, shared_policy=True, learner_player="both",
                      opponent="self", hidden_sizes=(), epochs_per_iter=2, minibatches=4, lr=1e-3)
@@ -1946,6 +1963,120 @@ def phase_draw(smi: str, gen: torch.Generator) -> dict:
     }
 
 
+def wins_positions(batch: int, gen: torch.Generator):
+    """(board, player) of ``batch`` lanes: random-game positions at every
+    depth (``DRAW_PLIES`` plies with auto-reset); in the second half, each
+    lane that has a winning move holds the board that move ends instead,
+    with the loser to move."""
+    from gobblet_rl_torch.kernels import wins
+    from gobblet_rl_torch.ops import batched_core as bc
+
+    dev = gen.device
+    state, _ = bc.rollout_random(bc.reset_planes(batch, dev), gen, DRAW_PLIES)
+    won = wins.winning_actions_plain(state.board, state.current)
+    ended = bc.apply_action_unchecked(state.board, state.current,
+                                      won.to(torch.uint8).argmax(0).to(torch.int32))
+    lanes = won.any(0)
+    lanes[: batch // 2] = False
+    board = torch.where(lanes[None, None], ended, state.board).contiguous()
+    player = torch.where(lanes, 1 - state.current, state.current).contiguous()
+    return board, player
+
+
+def phase_wins(smi: str, gen: torch.Generator) -> dict:
+    """26. the one-move win check kernel; returns its kernel-table entry."""
+    from gobblet_rl_torch.kernels import build, wins
+    from gobblet_rl_torch.models import actor_critic as ac
+    from gobblet_rl_torch.ops import batched_core as bc
+    from gobblet_rl_torch.search import gumbel, gumbel_lm
+
+    t0 = time.perf_counter()
+    dev = gen.device
+    lib, nvcc_log = build.build("wins")
+    ptxas = [line.strip() for line in nvcc_log.splitlines()
+             if "registers" in line or "spill" in line]
+    check(all(n == "0" for n in re.findall(r"(\d+) bytes spill", nvcc_log)),
+          "wins: ptxas reports no spills")
+    try:
+        sass = sass_body(lib, "wins_kernel")
+    except FileNotFoundError:
+        sass = None
+    out = {"metric": "wins_kernel", "device": smi, "library": lib.name, "ptxas": ptxas,
+           "sass_per_lane": sass["instructions"] if sass else "not measured",
+           "sass_opcodes": sass["opcodes"] if sass else None}
+
+    for batch in (WINS_RAGGED_B, WINS_B):
+        board, player = wins_positions(batch, gen)
+        kernel = wins.winning_actions(board, player)
+        plain = wins.winning_actions_plain(board, player)
+        check(torch.equal(kernel, plain), f"wins: kernel == plain at B={batch}")
+        out[f"bit_identical_b{batch}"] = True
+        out[f"winning_lanes_b{batch}"] = int(kernel.any(0).sum())
+
+    # times at WINS_B: the kernel alone, the whole call and the plain version
+    won = torch.empty((54, WINS_B), dtype=torch.bool, device=dev)
+    launch = wins._launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel_only():
+        for _ in range(WINS_REPEATS):
+            check(launch(board.data_ptr(), player.data_ptr(), won.data_ptr(), WINS_B,
+                         stream) == 0, "wins: launch")
+
+    def whole_call():
+        for _ in range(WINS_REPEATS):
+            wins.winning_actions(board, player)
+
+    for name, fn in (("ms", kernel_only), ("call_ms", whole_call)):
+        fn()
+        _, ms = timed(fn, 5)
+        out[name] = min(ms) / WINS_REPEATS
+        out[f"{name}_all"] = [m / WINS_REPEATS for m in ms]
+    timed(lambda: wins.winning_actions_plain(board, player), 1)
+    _, ms = timed(lambda: wins.winning_actions_plain(board, player), 3)
+    out["plain_ms"] = min(ms)
+    out["plain_ms_all"] = ms
+    sm_mhz = float(smi_query("clocks.max.sm").split()[0])
+    out["bytes_ms"] = 1e3 * WINS_B * WINS_BYTES_PER_LANE / PEAK_HBM_BYTES
+    if sass:
+        alu = sum(n for op, n in sass["opcodes"].items() if op in INT_ALU_OPS)
+        out["sass_issue_ms"] = issue_floor_ms(sass["instructions"], alu, WINS_B, sm_mhz)
+    else:
+        out["sass_issue_ms"] = "not measured"
+    del board, player, won, kernel, plain
+
+    # the launches of one search at the AZ cell's width
+    cfg = gumbel.GumbelConfig(num_sims=AZ["num_sims"])
+    net = ac.ConvActorCritic(channels=AZ["channels"], blocks=AZ["blocks"], device=dev)
+    net.reset_parameters(gen)
+    state, _ = bc.rollout_random(bc.reset_planes(WINS_B, dev), gen, 5)
+    before = wins.winning_actions.launches
+    _, ms = timed(lambda: gumbel_lm.gumbel_search_lm(net, state.board, state.current, gen,
+                                                     cfg), 1)
+    out["launches_search"] = wins.winning_actions.launches - before
+    out["search_ms"] = ms[0]
+    check(out["launches_search"] == cfg.num_sims + 1,
+          "wins: 33 launches in one search of 524,288 roots")
+    del net, state
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps(out))
+    return {
+        "name": "winning_actions",
+        "route": "cuda",
+        "source": "gobblet_rl_torch/kernels/csrc/wins.cu",
+        "replaces": None,
+        "launches_search": out["launches_search"],
+        "ms": out["ms"],
+        "call_ms": out["call_ms"],
+        "plain_ms": out["plain_ms"],
+        "bound_ms": out["bytes_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "sass_per_lane": out["sass_per_lane"],
+        "sass_issue_ms": out["sass_issue_ms"],
+    }
+
+
 def phase_parallel(smi: str, gen: torch.Generator) -> None:
     """22. the parallel slice: world size 1, then two ranks on one card."""
     import torch.distributed as dist
@@ -2115,7 +2246,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from gobblet_rl_torch.kernels import build, draw
+    from gobblet_rl_torch.kernels import build, draw, wins
     from gobblet_rl_torch.kernels import rollout as R
     from gobblet_rl_torch.ops import batched_core as bc
     from gobblet_rl_torch.train import dqn, replay
@@ -2297,10 +2428,13 @@ def main() -> int:
     phase_vector(smi, gen)
     phase_zoo(smi, gen)
 
-    # 12-14. the AlphaZero family; its path launches no kernel -------------
+    # 12-14. the AlphaZero family; its searches launch the win kernel ------
+    wins_before = wins.winning_actions.launches
     phase_search(smi, gen)
     phase_alphazero(smi, gen)
     phase_az_zoo(smi, gen)
+    wins_launches = wins.winning_actions.launches - wins_before
+    check(wins_launches > 0, "the AlphaZero path launched the win kernel")
 
     # 15-17. the PPO family, the defense bank and the audit; no kernel ------
     phase_ppo(smi, gen)
@@ -2330,6 +2464,11 @@ def main() -> int:
     draw_paths = {"phases 4-5": draw_launches,
                   "phase 25 2M iteration": draw_entry.pop("launches_2m_iteration")}
 
+    # 26. the one-move win check kernel ------------------------------------
+    wins_entry = phase_wins(smi, gen)
+    wins_paths = {"phases 12-14": wins_launches,
+                  "phase 26 search": wins_entry.pop("launches_search")}
+
     log(f"# all phases: {time.perf_counter() - run_t0:.1f} s")
     log(f"# bound: bytes {bytes_ms:.4f} ms; operations {ops_ms:.4f} ms; kernel at "
         f"{ops_ms / statistics.median(kernel_ms):.1%} of the larger")
@@ -2349,7 +2488,8 @@ def main() -> int:
         "library_ms": None,
         "sass_per_env_ply": sass if counts is not None else "not measured",
     }, {**draw_entry, "launches": sum(draw_paths.values()),
-        "launches_by_path": draw_paths}]}))
+        "launches_by_path": draw_paths}, {**wins_entry, "launches": sum(wins_paths.values()),
+                                          "launches_by_path": wins_paths}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

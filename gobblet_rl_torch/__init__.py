@@ -18,6 +18,9 @@ Layout:
   ``ops/debug.py`` its invariant checks
 * ``kernels/rollout.py``   the fused random rollout (hand-written CUDA,
   ``kernels/csrc/rollout.cu``) and its plain version
+* ``kernels/draw.py``, ``kernels/wins.py``  the uniform legal draw and the
+  one-move win check (hand-written CUDA, ``kernels/csrc/draw.cu`` and
+  ``wins.cu``), each with its plain version
 * ``models/mlp.py``        ``QNet`` + masked argmax
 * ``models/actor_critic.py``  ``ConvActorCritic`` / ``MLPActorCritic`` and the
   masked sampling helpers; ``models/convert.py`` carries parameters

@@ -67,7 +67,9 @@ def _launcher():
     return fn
 
 
-def _check(board: torch.Tensor, current: torch.Tensor) -> int:
+def check_batch(board: torch.Tensor, current: torch.Tensor) -> int:
+    """B of a lane-major batch (board int8[3, 9, B], mover int32[B], both
+    contiguous on one device); raises ValueError otherwise."""
     if board.dtype != torch.int8 or board.dim() != 3 or board.shape[:2] != (3, 9):
         raise ValueError(f"board must be int8[3, 9, B], got {board.dtype} {tuple(board.shape)}")
     batch = board.shape[-1]
@@ -93,7 +95,7 @@ def random_legal_actions(board: torch.Tensor, current: torch.Tensor,
     run :func:`random_legal_actions_plain`.  Any other device raises.
     While tracing is on, B is added to the counter ``draw.kernel_rows`` or
     ``draw.plain_rows``, by the path taken."""
-    batch = _check(board, current)
+    batch = check_batch(board, current)
     key = draw_key(generator, board.device)
     if board.device.type == "cpu":
         profiling.count("draw.plain_rows", batch)

@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from gobblet_rl_torch.core.types import NUM_ACTIONS as A
+from gobblet_rl_torch.kernels import wins
 from gobblet_rl_torch.ops import batched_core as bc
 from gobblet_rl_torch.search.gumbel import (
     GumbelConfig,
@@ -101,15 +102,11 @@ def _evaluate_lm(net, board: torch.Tensor, player: torch.Tensor):
 
 
 def _winning_actions_lm(board: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
-    """bool[54, B]: the legal immediate wins per lane (the 54 actions ride a
-    folded 54·B lane axis of one engine call, lane ``a·B + b``)."""
-    B = player.shape[0]
+    """bool[54, B]: the legal immediate wins per lane
+    (:func:`gobblet_rl_torch.kernels.wins.winning_actions`: the hand-written
+    kernel for CUDA tensors, the folded 54·B engine call for CPU ones)."""
     with profiling.annotate("az.wins"):
-        mask = bc.legal_mask_planes(board, player)
-        actions = torch.arange(A, dtype=torch.int32, device=board.device).repeat_interleave(B)
-        stepped = bc.apply_action_unchecked(board.repeat(1, 1, A), player.repeat(A), actions)
-        win = bc.winner_planes(bc.flat_planes(stepped)).view(A, B)
-        return mask & (win == bc.player_sign_planes(player)[None])
+        return wins.winning_actions(board.contiguous(), player.to(torch.int32).contiguous())
 
 
 def _apply_and_winner_lm(board, player, action):
