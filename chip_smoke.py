@@ -1896,13 +1896,10 @@ def phase_draw(smi: str, gen: torch.Generator) -> dict:
     # draw and kernel), the plain version and the eager draw it replaces
     key = draw.draw_key(gen, dev)
     act = torch.empty_like(cur)
-    launch = draw._launcher()
-    stream = torch.cuda.current_stream().cuda_stream
 
     def kernel_only():
         for _ in range(DRAW_REPEATS):
-            check(launch(board.data_ptr(), cur.data_ptr(), key.data_ptr(), act.data_ptr(),
-                         DRAW_B, stream) == 0, "draw: launch")
+            build.launch("draw", "draw", "ppppi", dev, board, cur, key, act, DRAW_B)
 
     def whole_call():
         for _ in range(DRAW_REPEATS):
@@ -2015,13 +2012,10 @@ def phase_wins(smi: str, gen: torch.Generator) -> dict:
 
     # times at WINS_B: the kernel alone, the whole call and the plain version
     won = torch.empty((54, WINS_B), dtype=torch.bool, device=dev)
-    launch = wins._launcher()
-    stream = torch.cuda.current_stream().cuda_stream
 
     def kernel_only():
         for _ in range(WINS_REPEATS):
-            check(launch(board.data_ptr(), player.data_ptr(), won.data_ptr(), WINS_B,
-                         stream) == 0, "wins: launch")
+            build.launch("wins", "win-check", "pppi", dev, board, player, won, WINS_B)
 
     def whole_call():
         for _ in range(WINS_REPEATS):

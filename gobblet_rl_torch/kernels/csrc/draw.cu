@@ -16,15 +16,9 @@
 // work per env is one Philox block plus a few dozen word operations, far
 // below what the SMs issue in the time the bytes take.  Design:
 //
-//  1. One thread per env; plane k of the board is read at k * n + env, so
-//     a warp reads 32 neighbouring bytes of each plane (coalesced).
-//  2. The legal mask as bitboards, as in rollout.cu: for the mover, word
-//     k holds the 9-cell masks of piece ids 1+k, 3+k and 5+k at bit
-//     offsets 0, 10 and 20 (id 2l+1+k lives on level l); the occupancy of
-//     every level and what covers it are a handful of word operations, the
-//     same as ops/batched_core.py::legal_mask_planes (`flat == 0 || size >
-//     top_size`, minus the mover's covered ids).  The two words fold into
-//     one 54-bit word, bit a for action a (piece a / 9 + 1 onto cell a % 9).
+//  1. One thread per env, reading the board as bitboard.cu lays it out.
+//  2. The legal mask from bitboard.cu's words (the mover's two and the
+//     occupancy), folded into one 54-bit word, bit a for action a.
 //  3. One Philox4x32-10 block per env: key (key[0] low, key[0] high),
 //     counter (env, 0, key[1] low, key[1] high), where `key` is two int64
 //     words the wrapper draws from the caller's torch.Generator on the
@@ -39,47 +33,13 @@
 // kernels/draw.py::random_legal_actions_plain computes the same action
 // from the same two words with tensor code, bit for bit.
 
-#include <cstddef>
-#include <cstdint>
-
 #include <cuda_runtime.h>
+
+#include "bitboard.cu"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kStride = 10;  // bit offset between levels in a word
-constexpr uint32_t kCells = 0x1FFu | (0x1FFu << kStride) | (0x1FFu << 2 * kStride);
-constexpr uint32_t kGuards = kCells + (0x001u | (0x001u << kStride) | (0x001u << 2 * kStride));
-
-constexpr uint32_t kM0 = 0xD2511F53u;
-constexpr uint32_t kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u;
-constexpr uint32_t kW1 = 0xBB67AE85u;
-
-struct Words {
-  uint32_t x, y, z, w;
-};
-
-// Philox4x32-10 (Salmon et al., SC'11): 10 rounds, key bumped between them.
-__device__ __forceinline__ Words philox4x32_10(Words c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = Words{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
-  }
-  return c;
-}
-
-// Fields of `x` (10 bits apart) that are non-zero become 0x1FF, others 0.
-__device__ __forceinline__ uint32_t spread(uint32_t x) {
-  const uint32_t h = (x + kCells) & kGuards;
-  return h - (h >> 9);
-}
 
 // Position of the r-th set bit (from 0) of `m`; r < popcount(m).
 __device__ __forceinline__ int nth_set_bit(uint64_t m, uint32_t r) {
@@ -109,32 +69,11 @@ draw_kernel(const int8_t* __restrict__ board, const int32_t* __restrict__ cur,
   const int env = blockIdx.x * kThreads + threadIdx.x;
   if (env >= n) return;
 
-  // int8 board -> occupancy and the mover's two words
-  const int sign = cur[env] == 0 ? 1 : -1;
-  uint32_t occ = 0, a0 = 0, a1 = 0;
-#pragma unroll
-  for (int l = 0; l < 3; ++l) {
-#pragma unroll
-    for (int c = 0; c < 9; ++c) {
-      const int v = board[static_cast<size_t>(l * 9 + c) * n + env] * sign;
-      const uint32_t bit = 1u << (kStride * l + c);
-      occ |= v != 0 ? bit : 0u;
-      a0 |= v == 2 * l + 1 ? bit : 0u;
-      a1 |= v == 2 * l + 2 ? bit : 0u;
-    }
-  }
-
-  // legal actions: free cells per level, minus the mover's covered ids
-  const uint32_t above = (occ >> kStride) | (occ >> 2 * kStride);
-  const uint32_t free = ~(occ | above) & kCells;
-  const uint32_t leg0 = free & ~spread(a0 & above);
-  const uint32_t leg1 = free & ~spread(a1 & above);
-  uint64_t mask = 0;
-#pragma unroll
-  for (int l = 0; l < 3; ++l) {
-    mask |= static_cast<uint64_t>((leg0 >> (kStride * l)) & 0x1FFu) << (18 * l);
-    mask |= static_cast<uint64_t>((leg1 >> (kStride * l)) & 0x1FFu) << (18 * l + 9);
-  }
+  // int8 board -> the mover's words; the legal actions as a 54-bit word
+  const Mover m = load_mover(board, n, env, cur[env]);
+  Legal leg;
+  legal_set(m, leg);
+  const uint64_t mask = action_mask(leg);
 
   // one Philox block: a 64-bit draw, scaled to an index among the legal
   const uint64_t k = static_cast<uint64_t>(key[0]), ctr = static_cast<uint64_t>(key[1]);

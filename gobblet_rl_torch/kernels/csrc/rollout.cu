@@ -15,18 +15,13 @@
 // built code, per ply, and divides by the SMs' integer rate).  The kernel
 // can only go faster by executing fewer instructions per env-ply:
 //
-//  1. Bitboards.  An env's state is four words: for the player to move (A)
-//     and the other (B), word k holds the 9-cell masks of piece ids 1+k,
-//     3+k and 5+k at bit offsets 0, 10 and 20 (id 2l+1+k lives on level l;
-//     bit 9 of each field is a guard).  The OR of the four words is every
-//     level's occupancy at once; one shift pair gives what covers each
-//     level, so the free cells for every size and the frozen pieces are a
-//     handful of word operations, the same as _legal_mask's
-//     `top == 0 || size > top_size` and `cov_i`.  Placement overwrites one
-//     field with `1 << cell`.  The int8 board is converted with selects at
-//     the start and the end only; no array is indexed by a runtime value.
-//     The mover's and the other's words swap every ply, so nothing selects
-//     on the player to move.
+//  1. Bitboards (bitboard.cu has the format).  An env's state is four
+//     words, two for the player to move (A) and two for the other (B), so
+//     the legal set is a handful of word operations and placement
+//     overwrites one field with `1 << cell`.  The int8 board is converted
+//     with selects at the start and the end only.  The mover's and the
+//     other's words swap every ply, so nothing selects on the player to
+//     move.
 //  2. Winner from line masks.  Each player's topmost-piece mask indexes a
 //     512-entry table in shared memory (built by the block at start) that
 //     gives its 8-bit mask of completed lines, bit i for WIN_LINES[i].  The
@@ -53,10 +48,9 @@
 // mode reads pre-drawn uint32[num_steps, 54, B] words (draw = word >> 8) in
 // place of Philox (the parity tests); the selection rule is the same.
 
-#include <cstddef>
-#include <cstdint>
-
 #include <cuda_runtime.h>
+
+#include "bitboard.cu"
 
 namespace {
 
@@ -65,33 +59,6 @@ constexpr int kMinBlocks = 4;  // blocks per SM: at most 64 registers a thread
 constexpr int kActions = 54;
 constexpr int kDraws = 5;    // 24-bit draws per Philox block
 constexpr int kChunks = 11;  // Philox blocks per ply: 55 draws >= 54 actions
-constexpr int kStride = 10;  // bit offset between levels in a word
-constexpr uint32_t kCells = 0x1FFu | (0x1FFu << kStride) | (0x1FFu << 2 * kStride);
-constexpr uint32_t kGuards = kCells + (0x001u | (0x001u << kStride) | (0x001u << 2 * kStride));
-
-constexpr uint32_t kM0 = 0xD2511F53u;
-constexpr uint32_t kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u;
-constexpr uint32_t kW1 = 0xBB67AE85u;
-
-struct Words {
-  uint32_t x, y, z, w;
-};
-
-// Philox4x32-10 (Salmon et al., SC'11): 10 rounds, key bumped between them.
-__device__ __forceinline__ Words philox4x32_10(Words c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kW0;
-      k1 += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = Words{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
-  }
-  return c;
-}
 
 // Draw j (24 bits at bit 24*j of the block) shifted to bits 8..31.
 __device__ __forceinline__ uint32_t draw_hi(const Words& r, int j) {
@@ -114,22 +81,6 @@ __device__ __forceinline__ uint32_t bit_mask(uint32_t v, int b) {
   return m;
 }
 
-// Fields of `x` (10 bits apart) that are non-zero become 0x1FF, others 0.
-__device__ __forceinline__ uint32_t spread(uint32_t x) {
-  const uint32_t h = (x + kCells) & kGuards;
-  return h - (h >> 9);
-}
-
-// Bit i set when the cells of WIN_LINES[i] are all in `top`.
-__device__ __forceinline__ uint32_t line_mask(uint32_t top) {
-  // WIN_LINES (core/types.py) as 9-bit cell masks, in reference order
-  constexpr uint32_t kLines[8] = {0007, 0070, 0700, 0111, 0222, 0444, 0421, 0124};
-  uint32_t m = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) m |= ((top & kLines[i]) == kLines[i]) ? 1u << i : 0u;
-  return m;
-}
-
 // The 9-bit mask of cells whose topmost piece is in `own` (levels packed).
 __device__ __forceinline__ uint32_t top_cells(uint32_t own, uint32_t above) {
   const uint32_t vis = own & ~above;
@@ -144,7 +95,7 @@ rollout_kernel(const int8_t* __restrict__ board_in, const int32_t* __restrict__ 
                int n, int num_steps, uint32_t seed) {
   const int env = blockIdx.x * kThreads + threadIdx.x;
   __shared__ uint8_t lines[512];
-  for (int m = threadIdx.x; m < 512; m += kThreads) lines[m] = static_cast<uint8_t>(line_mask(m));
+  for (int m = threadIdx.x; m < 512; m += kThreads) lines[m] = static_cast<uint8_t>(full_lines(m));
   __syncthreads();
   int eps = 0, w1 = 0;
 
@@ -170,11 +121,8 @@ rollout_kernel(const int8_t* __restrict__ board_in, const int32_t* __restrict__ 
 #pragma unroll 1
     for (int t = 0; t < num_steps; ++t) {
       // legal actions: free cells per level, minus the mover's frozen ids
-      const uint32_t occ = a0 | a1 | b0 | b1;
-      const uint32_t above = (occ >> kStride) | (occ >> 2 * kStride);
-      const uint32_t free = ~(occ | above) & kCells;
-      const uint32_t leg0 = free & ~spread(a0 & above);
-      const uint32_t leg1 = free & ~spread(a1 & above);
+      Legal leg;
+      legal_set(Mover{a0 | a1 | b0 | b1, a0, a1}, leg);
 
       // one max over the packed keys of the legal actions
       uint32_t best = 0, pending = 0;
@@ -197,7 +145,7 @@ rollout_kernel(const int8_t* __restrict__ board_in, const int32_t* __restrict__ 
               hi = draw_hi(r, j);
             }
             const uint32_t key = hi | (255u - (64u * l + 32u * k + cell));
-            const uint32_t gated = key & bit_mask(k ? leg1 : leg0, kStride * l + cell);
+            const uint32_t gated = key & bit_mask(k ? leg.leg1 : leg.leg0, kStride * l + cell);
             if (a % 2 == 0) {
               pending = gated;
             } else {

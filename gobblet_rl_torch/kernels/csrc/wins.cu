@@ -19,13 +19,9 @@
 // code's time.  The design keeps every intermediate in registers, so the
 // bytes stay at their least:
 //
-//  1. One thread per lane; plane k of the board is read at k * n + lane, so
-//     a warp reads 32 neighbouring bytes of each plane (coalesced).
-//  2. The legal mask as bitboards, as in draw.cu: the occupancy of every
-//     level and the mover's ids 1+k, 3+k, 5+k (k = 0, 1) packed at bit
-//     offsets 0, 10 and 20 of three words; free cells per level minus the
-//     mover's covered ids, folded into one 54-bit word, bit a for action a
-//     (piece a / 9 + 1 onto cell a % 9).
+//  1. One thread per lane, reading the board as bitboard.cu lays it out.
+//  2. The legal mask from bitboard.cu's words (the mover's two and the
+//     occupancy), folded into one 54-bit word, bit a for action a.
 //  3. The mover's and the opponent's pieces as 9-bit masks per level.  For
 //     each piece p (ids are level-unique, so p stands on level (p - 1) / 2
 //     or in hand), lift it: clear its cell on its level, and the top of each
@@ -47,46 +43,13 @@
 // kernels/wins.py::winning_actions_plain computes the same bools with the
 // engine's tensor code, bit for bit.
 
-#include <cstddef>
-#include <cstdint>
-
 #include <cuda_runtime.h>
+
+#include "bitboard.cu"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kStride = 10;  // bit offset between levels in a packed word
-constexpr uint32_t kCells = 0x1FFu | (0x1FFu << kStride) | (0x1FFu << 2 * kStride);
-constexpr uint32_t kGuards = kCells + (0x001u | (0x001u << kStride) | (0x001u << 2 * kStride));
-
-// Line i of core/types.py::WIN_LINES_NP, in its order, as a 9-bit cell mask
-// (a function, not an array: device code may not index a constexpr array).
-__host__ __device__ constexpr uint32_t win_line(int i) {
-  switch (i) {
-    case 0: return 0x007u;  // (0, 1, 2)
-    case 1: return 0x038u;  // (3, 4, 5)
-    case 2: return 0x1C0u;  // (6, 7, 8)
-    case 3: return 0x049u;  // (0, 3, 6)
-    case 4: return 0x092u;  // (1, 4, 7)
-    case 5: return 0x124u;  // (2, 5, 8)
-    case 6: return 0x111u;  // (0, 4, 8)
-    default: return 0x054u;  // (2, 4, 6)
-  }
-}
-
-// Fields of `x` (10 bits apart) that are non-zero become 0x1FF, others 0.
-__device__ __forceinline__ uint32_t spread(uint32_t x) {
-  const uint32_t h = (x + kCells) & kGuards;
-  return h - (h >> 9);
-}
-
-// Bit i set where line i is full in the 9-bit mask `m`.
-__device__ __forceinline__ uint32_t full_lines(uint32_t m) {
-  uint32_t out = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out |= (m & win_line(i)) == win_line(i) ? 1u << i : 0u;
-  return out;
-}
 
 // The lines through cell `c` as bits i of line i.
 __host__ __device__ constexpr uint32_t lines_through(int c) {
@@ -112,41 +75,20 @@ wins_kernel(const int8_t* __restrict__ board, const int32_t* __restrict__ cur,
   const int lane = blockIdx.x * kThreads + threadIdx.x;
   if (lane >= n) return;
 
-  // int8 board -> per-level masks of both signs, and the mover's ids packed
-  // as draw.cu packs them
-  const int sign = cur[lane] == 0 ? 1 : -1;
+  // int8 board -> the mover's words, and per-level masks of both signs
   uint32_t own[3] = {0, 0, 0}, opp[3] = {0, 0, 0};
-  uint32_t occ = 0, a0 = 0, a1 = 0;
-#pragma unroll
-  for (int l = 0; l < 3; ++l) {
-#pragma unroll
-    for (int c = 0; c < 9; ++c) {
-      const int v = board[static_cast<size_t>(l * 9 + c) * n + lane] * sign;
-      own[l] |= v > 0 ? 1u << c : 0u;
-      opp[l] |= v < 0 ? 1u << c : 0u;
-      const uint32_t bit = 1u << (kStride * l + c);
-      occ |= v != 0 ? bit : 0u;
-      a0 |= v == 2 * l + 1 ? bit : 0u;
-      a1 |= v == 2 * l + 2 ? bit : 0u;
-    }
-  }
-
-  // legal actions: free cells per level, minus the mover's covered ids
-  const uint32_t above = (occ >> kStride) | (occ >> 2 * kStride);
-  const uint32_t free = ~(occ | above) & kCells;
-  const uint32_t leg0 = free & ~spread(a0 & above);
-  const uint32_t leg1 = free & ~spread(a1 & above);
-  uint64_t mask = 0;
-#pragma unroll
-  for (int l = 0; l < 3; ++l) {
-    mask |= static_cast<uint64_t>((leg0 >> (kStride * l)) & 0x1FFu) << (18 * l);
-    mask |= static_cast<uint64_t>((leg1 >> (kStride * l)) & 0x1FFu) << (18 * l + 9);
-  }
+  const Mover m = load_mover(board, n, lane, cur[lane], [&](int l, int c, int v) {
+    own[l] |= v > 0 ? 1u << c : 0u;
+    opp[l] |= v < 0 ? 1u << c : 0u;
+  });
+  Legal leg;
+  legal_set(m, leg);
+  const uint64_t mask = action_mask(leg);
 
 #pragma unroll
   for (int p = 0; p < 6; ++p) {  // piece id p + 1, on level p / 2
     const int l = p >> 1;
-    const uint32_t at = ((p & 1 ? a1 : a0) >> (kStride * l)) & 0x1FFu;
+    const uint32_t at = ((p & 1 ? m.a1 : m.a0) >> (kStride * l)) & 0x1FFu;
     uint32_t o[3] = {own[0], own[1], own[2]};
     o[l] &= ~at;
     const uint32_t occ2 = o[2] | opp[2];

@@ -24,9 +24,6 @@ back.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from gobblet_rl_torch.kernels import build
@@ -59,30 +56,6 @@ def random_legal_actions_plain(board: torch.Tensor, current: torch.Tensor,
     return hit.to(torch.int8).argmax(dim=0).to(torch.int32)
 
 
-@functools.cache
-def _launcher():
-    fn = build.load("draw").gobblet_draw_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def check_batch(board: torch.Tensor, current: torch.Tensor) -> int:
-    """B of a lane-major batch (board int8[3, 9, B], mover int32[B], both
-    contiguous on one device); raises ValueError otherwise."""
-    if board.dtype != torch.int8 or board.dim() != 3 or board.shape[:2] != (3, 9):
-        raise ValueError(f"board must be int8[3, 9, B], got {board.dtype} {tuple(board.shape)}")
-    batch = board.shape[-1]
-    if current.dtype != torch.int32 or tuple(current.shape) != (batch,):
-        raise ValueError(f"current must be int32[{batch}], got {current.dtype} "
-                         f"{tuple(current.shape)}")
-    if current.device != board.device:
-        raise ValueError("board and current must be on one device")
-    if not (board.is_contiguous() and current.is_contiguous()):
-        raise ValueError("board and current must be contiguous")
-    return batch
-
-
 def random_legal_actions(board: torch.Tensor, current: torch.Tensor,
                          generator: torch.Generator) -> torch.Tensor:
     """int32[B]: for each env of ``board`` (int8[3, 9, B], lane-major) with
@@ -95,7 +68,7 @@ def random_legal_actions(board: torch.Tensor, current: torch.Tensor,
     run :func:`random_legal_actions_plain`.  Any other device raises.
     While tracing is on, B is added to the counter ``draw.kernel_rows`` or
     ``draw.plain_rows``, by the path taken."""
-    batch = check_batch(board, current)
+    batch = build.check_batch(board, current)
     key = draw_key(generator, board.device)
     if board.device.type == "cpu":
         profiling.count("draw.plain_rows", batch)
@@ -104,12 +77,7 @@ def random_legal_actions(board: torch.Tensor, current: torch.Tensor,
         raise ValueError(f"no draw kernel for device {board.device}")
     out = torch.empty_like(current)
     if batch > 0:
-        with torch.cuda.device(board.device):
-            err = _launcher()(board.data_ptr(), current.data_ptr(), key.data_ptr(),
-                              out.data_ptr(), batch,
-                              torch.cuda.current_stream(board.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"draw kernel launch failed: cudaError {err}")
+        build.launch("draw", "draw", "ppppi", board.device, board, current, key, out, batch)
         random_legal_actions.launches += 1
     profiling.count("draw.kernel_rows", batch)
     return out

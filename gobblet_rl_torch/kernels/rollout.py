@@ -21,9 +21,6 @@ the plain version only for CPU tensors; it never falls back.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from gobblet_rl_torch.kernels import build
@@ -105,35 +102,19 @@ def rollout_random_fused_plain(board: torch.Tensor, current: torch.Tensor,
     return board, cur, {"episodes": eps, "wins_p1": w1, "wins_p2": w2}
 
 
-@functools.cache
-def _launcher():
-    fn = build.load("rollout").gobblet_rollout_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                                          ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(board, current, num_steps, draws) -> int:
     if not isinstance(num_steps, int) or num_steps < 0:
         raise ValueError(f"num_steps must be a non-negative int, got {num_steps!r}")
-    if board.dtype != torch.int8 or board.dim() != 3 or board.shape[:2] != (3, 9):
-        raise ValueError(f"board must be int8[3, 9, B], got {board.dtype} {tuple(board.shape)}")
-    batch = board.shape[-1]
-    if current.dtype != torch.int32 or tuple(current.shape) != (batch,):
-        raise ValueError(f"current must be int32[{batch}], got {current.dtype} "
-                         f"{tuple(current.shape)}")
-    tensors = [board, current]
+    batch = build.check_batch(board, current)
     if draws is not None:
         if draws.dtype not in (torch.uint32, torch.int32) or \
                 tuple(draws.shape) != (num_steps, NUM_ACTIONS, batch):
             raise ValueError(f"draws must be uint32[{num_steps}, 54, {batch}], got "
                              f"{draws.dtype} {tuple(draws.shape)}")
-        tensors.append(draws)
-    if any(t.device != board.device for t in tensors):
-        raise ValueError("board, current and draws must be on one device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("board, current and draws must be contiguous")
+        if draws.device != board.device:
+            raise ValueError("board and draws must be on one device")
+        if not draws.is_contiguous():
+            raise ValueError("draws must be contiguous")
     return batch
 
 
@@ -167,16 +148,8 @@ def rollout_random_fused(board: torch.Tensor, current: torch.Tensor, num_steps: 
     cur_out = torch.empty_like(current)
     stats = torch.zeros(3, dtype=torch.int64, device=board.device)
     if batch > 0:
-        with torch.cuda.device(board.device):
-            err = _launcher()(
-                board.data_ptr(), current.data_ptr(), board_out.data_ptr(),
-                cur_out.data_ptr(), stats.data_ptr(),
-                None if draws is None else draws.data_ptr(),
-                batch, num_steps, seed & _MASK32,
-                torch.cuda.current_stream(board.device).cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"rollout kernel launch failed: cudaError {err}")
+        build.launch("rollout", "rollout", "ppppppiiu", board.device, board, current, board_out,
+                     cur_out, stats, draws, batch, num_steps, seed & _MASK32)
         rollout_random_fused.launches += 1
     return board_out, cur_out, {"episodes": stats[0], "wins_p1": stats[1],
                                 "wins_p2": stats[2]}

@@ -15,14 +15,10 @@ tested in registers.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from gobblet_rl_torch.core.types import NUM_ACTIONS as A
 from gobblet_rl_torch.kernels import build
-from gobblet_rl_torch.kernels.draw import check_batch
 from gobblet_rl_torch.ops import batched_core as bc
 from gobblet_rl_torch.utils import profiling
 
@@ -39,14 +35,6 @@ def winning_actions_plain(board: torch.Tensor, player: torch.Tensor) -> torch.Te
     return mask & (win == bc.player_sign_planes(player)[None])
 
 
-@functools.cache
-def _launcher():
-    fn = build.load("wins").gobblet_wins_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def winning_actions(board: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
     """bool[54, B]: for each lane of ``board`` (int8[3, 9, B], lane-major,
     contiguous) with ``player`` (int32[B]) to move, the legal actions after
@@ -57,7 +45,7 @@ def winning_actions(board: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
     :func:`winning_actions_plain`.  Any other device raises.  While tracing
     is on, B is added to the counter ``wins.kernel_rows`` or
     ``wins.plain_rows``, by the path taken."""
-    batch = check_batch(board, player)
+    batch = build.check_batch(board, player)
     if board.device.type == "cpu":
         profiling.count("wins.plain_rows", batch)
         return winning_actions_plain(board, player)
@@ -65,11 +53,7 @@ def winning_actions(board: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no win-check kernel for device {board.device}")
     out = torch.empty((A, batch), dtype=torch.bool, device=board.device)
     if batch > 0:
-        with torch.cuda.device(board.device):
-            err = _launcher()(board.data_ptr(), player.data_ptr(), out.data_ptr(), batch,
-                              torch.cuda.current_stream(board.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"win-check kernel launch failed: cudaError {err}")
+        build.launch("wins", "win-check", "pppi", board.device, board, player, out, batch)
         winning_actions.launches += 1
     profiling.count("wins.kernel_rows", batch)
     return out

@@ -101,3 +101,28 @@ def test_sass_body_counts_a_whole_kernel(listing):
     assert chip_smoke.sass_body(Path("lib.so"), "rollout_kernelILb0E")["instructions"] == 9
     with pytest.raises(RuntimeError):
         chip_smoke.sass_body(Path("lib.so"), "rollout_kernel")  # two kernels match
+
+
+def test_build_keys_on_the_files_a_source_includes(tmp_path, monkeypatch):
+    """An edit of a file that a kernel source includes changes that kernel's
+    library, and an edit of a file it does not include leaves it.  A fake
+    ``nvcc`` writes an empty library; no card or toolkit is needed."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "shared.cu").write_text("#pragma once\nconstexpr int kA = 1;\n")
+    (csrc / "other.cu").write_text("constexpr int kB = 2;\n")
+    (csrc / "kernel.cu").write_text('#include <cstdint>\n#include "shared.cu"\n')
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+
+    first, _ = build.build("kernel")
+    assert first.exists() and build.build("kernel")[0] == first
+    (csrc / "other.cu").write_text("constexpr int kB = 3;\n")
+    assert build.build("kernel")[0] == first
+    (csrc / "shared.cu").write_text("#pragma once\nconstexpr int kA = 2;\n")
+    second, _ = build.build("kernel")
+    assert second != first and second.exists()

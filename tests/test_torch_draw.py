@@ -14,6 +14,7 @@ from gobblet_rl_torch.kernels import draw
 from gobblet_rl_torch.kernels.rollout import philox4x32_10
 from gobblet_rl_torch.ops import batched_core as bc
 from gobblet_rl_torch.utils import profiling
+from tests.torch_bitboard import action_mask, legal_set, words
 
 CPU = torch.device("cpu")
 SEED = 2**33 + 17
@@ -149,39 +150,12 @@ def test_wrapper_rejects_bad_inputs(bad):
 # ---------------------------------------------------------------------------
 # a numpy model of csrc/draw.cu's integer algebra
 # ---------------------------------------------------------------------------
-STRIDE = 10
-CELLS = 0x1FF | (0x1FF << STRIDE) | (0x1FF << 2 * STRIDE)
-GUARDS = CELLS + (1 | (1 << STRIDE) | (1 << 2 * STRIDE))
-
-
 def kernel_model(board: np.ndarray, current: np.ndarray, key: np.ndarray) -> np.ndarray:
-    """draw_kernel step by step on uint32/uint64 numpy words, the product's
-    high word by Python integers."""
+    """draw_kernel step by step on tests/torch_bitboard.py's words, the
+    product's high word by Python integers."""
     batch = board.shape[-1]
-    sign = np.where(current == 0, 1, -1)
-    occ = np.zeros(batch, np.uint32)
-    a0 = np.zeros(batch, np.uint32)
-    a1 = np.zeros(batch, np.uint32)
-    for l in range(3):
-        for c in range(9):
-            v = board[l, c].astype(np.int32) * sign
-            bit = np.uint32(1 << (STRIDE * l + c))
-            occ |= np.where(v != 0, bit, np.uint32(0))
-            a0 |= np.where(v == 2 * l + 1, bit, np.uint32(0))
-            a1 |= np.where(v == 2 * l + 2, bit, np.uint32(0))
-
-    def spread(x):
-        h = (x + np.uint32(CELLS)) & np.uint32(GUARDS)
-        return h - (h >> np.uint32(9))
-
-    above = (occ >> np.uint32(STRIDE)) | (occ >> np.uint32(2 * STRIDE))
-    free = ~(occ | above) & np.uint32(CELLS)
-    legs = [free & ~spread(a0 & above), free & ~spread(a1 & above)]
-    mask = np.zeros(batch, np.uint64)
-    for l in range(3):
-        for k in range(2):
-            field = (legs[k] >> np.uint32(STRIDE * l)) & np.uint32(0x1FF)
-            mask |= field.astype(np.uint64) << np.uint64(18 * l + 9 * k)
+    occ, a0, a1 = words(board, np.where(current == 0, 1, -1))
+    mask = action_mask(*legal_set(a0, a1, occ))
 
     k, ctr = (int(w) & (2**64 - 1) for w in key)
     env = torch.arange(batch, dtype=torch.int64)

@@ -19,6 +19,8 @@ from gobblet_rl_torch.kernels import rollout as R
 from gobblet_rl_torch.ops import batched_core as tbc
 from gobblet_rl_tpu.ops import pallas_rollout as pr
 from tests.test_pallas import _valid_board
+from tests.torch_bitboard import (STRIDE, U32, above, action_mask, full_lines, legal_set,
+                                  mask_rows, spread, words)
 
 CPU = torch.device("cpu")
 
@@ -152,49 +154,21 @@ def test_philox_field_layout():
 
 
 # A numpy model of the kernel's bitboard algebra (csrc/rollout.cu, items 1-3
-# of its note), held against the Pallas kernel's helpers.
-STRIDE = 10
-CELLS = sum(0x1FF << STRIDE * lv for lv in range(3))
-GUARDS = CELLS + sum(1 << STRIDE * lv for lv in range(3))
-LINES = [sum(1 << int(c) for c in line) for line in pr._WIN_LINES]
-
-
+# of its note, on tests/torch_bitboard.py's words), held against the Pallas
+# kernel's helpers.
 def to_words(board27, sign):
-    """Mover's words a0, a1 and the other's b0, b1 (uint64 [B]): word k holds
-    piece id 2l+1+k's cells at bit 10*l."""
-    words = [np.zeros(board27.shape[1], np.uint64) for _ in range(4)]
-    for lv in range(3):
-        for c in range(9):
-            v = board27[9 * lv + c].astype(np.int64) * sign
-            bit = np.uint64(1 << (STRIDE * lv + c))
-            for i, want in enumerate((2 * lv + 1, 2 * lv + 2, -(2 * lv + 1), -(2 * lv + 2))):
-                words[i] |= np.where(v == want, bit, np.uint64(0))
-    return words
-
-
-def spread(x):
-    h = (x + np.uint64(CELLS)) & np.uint64(GUARDS)
-    return h - (h >> np.uint64(9))
+    """Mover's words a0, a1 and the other's b0, b1 (uint32 [B])."""
+    return words(board27, sign)[1:] + words(board27, -sign)[1:]
 
 
 def model_legal(a0, a1, b0, b1):
     """bool[54, B] from the words: free cells per level minus frozen ids."""
-    occ = a0 | a1 | b0 | b1
-    above = (occ >> np.uint64(STRIDE)) | (occ >> np.uint64(2 * STRIDE))
-    free = ~(occ | above) & np.uint64(CELLS)
-    leg = [free & ~spread(a0 & above), free & ~spread(a1 & above)]
-    return np.stack([(leg[(a // 9) % 2] >> np.uint64(STRIDE * (a // 18) + a % 9)) & np.uint64(1)
-                     for a in range(54)]).astype(bool)
+    return mask_rows(action_mask(*legal_set(a0, a1, a0 | a1 | b0 | b1)))
 
 
-def model_top(own, above):
-    vis = own & ~above
-    return (vis | (vis >> np.uint64(STRIDE)) | (vis >> np.uint64(2 * STRIDE))) & np.uint64(0x1FF)
-
-
-def model_lines(top):
-    return sum(((top & np.uint64(m)) == np.uint64(m)).astype(np.int64) << i
-               for i, m in enumerate(LINES))
+def model_top(own, cover):
+    vis = own & ~cover
+    return (vis | (vis >> U32(STRIDE)) | (vis >> U32(2 * STRIDE))) & U32(0x1FF)
 
 
 def model_key(draw24, a):
@@ -213,15 +187,14 @@ def test_bitboard_legal_mask_matches_pallas(plies, seed):
     a0, a1, b0, b1 = to_words(b27, sign)
     want = np.asarray(pr._legal_mask(jnp.asarray(b27), jnp.asarray(sign[None])))
     np.testing.assert_array_equal(model_legal(a0, a1, b0, b1), want)
-    occ = a0 | a1 | b0 | b1
-    above = (occ >> np.uint64(STRIDE)) | (occ >> np.uint64(2 * STRIDE))
+    cover = above(a0 | a1 | b0 | b1)
     flat = np.asarray(pr._flat(jnp.asarray(b27))) * sign
     for own, sgn in ((a0 | a1, 1), (b0 | b1, -1)):
-        top = model_top(own, above)
-        bits = sum((flat[c] * sgn > 0).astype(np.uint64) << np.uint64(c) for c in range(9))
+        top = model_top(own, cover)
+        bits = sum((flat[c] * sgn > 0).astype(U32) << U32(c) for c in range(9))
         np.testing.assert_array_equal(top, bits)
     if plies == 40:  # deep states carry covered and frozen pieces
-        assert (spread(a0 & above) | spread(a1 & above)).any()
+        assert (spread(a0 & cover) | spread(a1 & cover)).any()
 
 
 def test_line_masks_match_winner_exhaustively():
@@ -229,8 +202,8 @@ def test_line_masks_match_winner_exhaustively():
     comparing the two players' completed-line masks."""
     top = np.array(np.meshgrid(*[[-1, 0, 1]] * 9, indexing="ij")).reshape(9, -1).astype(np.int32)
     want = np.asarray(pr._winner(jnp.asarray(top)))[0]
-    lx = model_lines(sum((top[c] > 0).astype(np.uint64) << np.uint64(c) for c in range(9)))
-    lo = model_lines(sum((top[c] < 0).astype(np.uint64) << np.uint64(c) for c in range(9)))
+    lx = full_lines(sum((top[c] > 0).astype(U32) << U32(c) for c in range(9)))
+    lo = full_lines(sum((top[c] < 0).astype(U32) << U32(c) for c in range(9)))
     assert not (lx & lo).any()
     np.testing.assert_array_equal(np.where(lx > lo, 1, np.where(lo > lx, -1, 0)), want)
 
@@ -263,27 +236,25 @@ def model_rollout(board, cur, field):
                         model_key(bits >> 8, np.arange(54)[:, None]), np.uint64(0))
         code = (~keys.max(axis=0) & np.uint64(255)).astype(np.int64)
         lv, k, cell = code >> 6, (code >> 5) & 1, code & 31
-        clear = ~(np.uint64(0x1FF) << (STRIDE * lv).astype(np.uint64))
-        bit = np.uint64(1) << (STRIDE * lv + cell).astype(np.uint64)
+        clear = ~(U32(0x1FF) << (STRIDE * lv).astype(U32))
+        bit = U32(1) << (STRIDE * lv + cell).astype(U32)
         a1 = np.where(k == 1, (a1 & clear) | bit, a1)
         a0 = np.where(k == 0, (a0 & clear) | bit, a0)
-        occ = a0 | a1 | b0 | b1
-        above = (occ >> np.uint64(STRIDE)) | (occ >> np.uint64(2 * STRIDE))
-        la, lb = model_lines(model_top(a0 | a1, above)), model_lines(model_top(b0 | b1, above))
+        cover = above(a0 | a1 | b0 | b1)
+        la, lb = full_lines(model_top(a0 | a1, cover)), full_lines(model_top(b0 | b1, cover))
         done = (la | lb) != 0
         eps += int(done.sum())
         w1 += int((done & ((la > lb) == (cur == 0))).sum())
-        zero = np.uint64(0)
-        a0, a1, b0, b1 = (np.where(done, zero, w) for w in (b0, b1, a0, a1))
+        a0, a1, b0, b1 = (np.where(done, U32(0), w) for w in (b0, b1, a0, a1))
         cur = np.where(done, 0, 1 - cur)
     x = [np.where(cur == 0, p, q) for p, q in ((a0, b0), (a1, b1), (b0, a0), (b1, a1))]
     out = np.zeros_like(b27)
     for lv in range(3):
         for c in range(9):
-            s = np.uint64(STRIDE * lv + c)
+            s = U32(STRIDE * lv + c)
             vals = (2 * lv + 1, 2 * lv + 2, -(2 * lv + 1), -(2 * lv + 2))
             for w, v in reversed(list(zip(x, vals))):
-                out[9 * lv + c] = np.where((w >> s) & np.uint64(1), v, out[9 * lv + c])
+                out[9 * lv + c] = np.where((w >> s) & U32(1), v, out[9 * lv + c])
     return out.reshape(3, 9, -1).astype(np.int8), cur.astype(np.int32), (eps, w1, eps - w1)
 
 

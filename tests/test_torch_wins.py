@@ -14,13 +14,14 @@ import pytest
 import torch
 
 from gobblet_rl_torch.core import rules_np
-from gobblet_rl_torch.core.types import WIN_LINES_NP
 from gobblet_rl_torch.kernels import wins
 from gobblet_rl_torch.ops import batched_core as bc
 from gobblet_rl_torch.utils import profiling
+from tests.torch_bitboard import (LINES, STRIDE, U32, action_mask, full_lines, legal_set,
+                                  mask_rows, words)
 
 SEED = 2**33 + 29
-SOURCE = Path(wins.__file__).resolve().parent / "csrc" / "wins.cu"
+CSRC = Path(wins.__file__).resolve().parent / "csrc"
 
 
 @pytest.fixture(autouse=True)
@@ -142,58 +143,33 @@ def test_lift_reveals_a_line(case, mover):
 # ---------------------------------------------------------------------------
 # a numpy model of csrc/wins.cu's bitboard algebra
 # ---------------------------------------------------------------------------
-STRIDE = 10
-CELLS = 0x1FF | (0x1FF << STRIDE) | (0x1FF << 2 * STRIDE)
-GUARDS = CELLS + (1 | (1 << STRIDE) | (1 << 2 * STRIDE))
-LINES = [sum(1 << int(c) for c in line) for line in WIN_LINES_NP]
-
-
 def test_kernel_lines_are_the_rules_lines():
-    """The kernel's nine-bit line masks, in the source's order, are
-    ``WIN_LINES_NP``'s lines in theirs."""
-    found = re.findall(r"(?:case \d|default): return 0x([0-9A-Fa-f]+)u;", SOURCE.read_text())
+    """The nine-bit line masks of csrc/bitboard.cu, in the source's order,
+    are ``WIN_LINES_NP``'s lines in theirs, and the kernels that fold lines
+    (rollout.cu, wins.cu) take that table and hold none of their own."""
+    table = r"(?:case \d|default): return 0x([0-9A-Fa-f]+)u;"
+    found = re.findall(table, (CSRC / "bitboard.cu").read_text())
     assert [int(h, 16) for h in found] == LINES
+    for kernel in ("rollout.cu", "wins.cu"):
+        text = (CSRC / kernel).read_text()
+        assert '#include "bitboard.cu"' in text and "full_lines(" in text, kernel
+        assert not re.findall(table, text), kernel
 
 
 def kernel_model(board: np.ndarray, player: np.ndarray) -> np.ndarray:
-    """wins_kernel step by step on uint32/uint64 numpy words."""
-    u32 = np.uint32
+    """wins_kernel step by step on tests/torch_bitboard.py's words."""
     batch = board.shape[-1]
-    v = board.astype(np.int32) * np.where(player == 0, 1, -1)
-    own, opp = [], []
-    occ, a0, a1 = (np.zeros(batch, u32) for _ in range(3))
-    for l in range(3):
-        own.append(np.zeros(batch, u32))
-        opp.append(np.zeros(batch, u32))
-        for c in range(9):
-            own[l] |= np.where(v[l, c] > 0, u32(1 << c), u32(0))
-            opp[l] |= np.where(v[l, c] < 0, u32(1 << c), u32(0))
-            bit = u32(1 << (STRIDE * l + c))
-            occ |= np.where(v[l, c] != 0, bit, u32(0))
-            a0 |= np.where(v[l, c] == 2 * l + 1, bit, u32(0))
-            a1 |= np.where(v[l, c] == 2 * l + 2, bit, u32(0))
-
-    def spread(x):
-        h = (x + u32(CELLS)) & u32(GUARDS)
-        return h - (h >> u32(9))
-
-    above = (occ >> u32(STRIDE)) | (occ >> u32(2 * STRIDE))
-    free = ~(occ | above) & u32(CELLS)
-    legs = [free & ~spread(a0 & above), free & ~spread(a1 & above)]
-    mask = np.zeros(batch, np.uint64)
-    for l in range(3):
-        for k in range(2):
-            field = (legs[k] >> u32(STRIDE * l)) & u32(0x1FF)
-            mask |= field.astype(np.uint64) << np.uint64(18 * l + 9 * k)
-
-    def full_lines(m):
-        return sum(np.where(m & u32(line) == u32(line), u32(1 << i), u32(0))
-                   for i, line in enumerate(LINES))
+    sign = np.where(player == 0, 1, -1)
+    v = board.astype(np.int32) * sign
+    own = [sum(np.where(v[l, c] > 0, U32(1 << c), U32(0)) for c in range(9)) for l in range(3)]
+    opp = [sum(np.where(v[l, c] < 0, U32(1 << c), U32(0)) for c in range(9)) for l in range(3)]
+    occ, a0, a1 = words(board, sign)
+    legal = mask_rows(action_mask(*legal_set(a0, a1, occ)))
 
     out = np.zeros((54, batch), dtype=bool)
     for p in range(6):
         l = p >> 1
-        at = ((a1 if p & 1 else a0) >> u32(STRIDE * l)) & u32(0x1FF)
+        at = ((a1 if p & 1 else a0) >> U32(STRIDE * l)) & U32(0x1FF)
         o = list(own)
         o[l] = o[l] & ~at
         occ2 = o[2] | opp[2]
@@ -207,11 +183,11 @@ def kernel_model(board: np.ndarray, player: np.ndarray) -> np.ndarray:
             through = 0
             for i, line in enumerate(LINES):
                 if line >> c & 1:
-                    rest = u32(line & ~(1 << c))
-                    mine |= np.where(t_own & rest == rest, u32(1 << i), u32(0))
+                    rest = U32(line & ~(1 << c))
+                    mine |= np.where(t_own & rest == rest, U32(1 << i), U32(0))
                     through |= 1 << i
-            theirs = full_opp & ~u32(through)
-            out[a] = ((mask >> np.uint64(a)) & np.uint64(1)).astype(bool) & (mine > theirs)
+            theirs = full_opp & ~U32(through)
+            out[a] = legal[a] & (mine > theirs)
     return out
 
 
