@@ -2172,26 +2172,20 @@ def phase_parallel(smi: str, gen: torch.Generator) -> None:
             tp_job = pool.submit(timed_call, spawn_ranks, tp_census_rank, 2, (PAR_TP_B,),
                                  device=str(dev), backend=PAR_RANK_BACKEND, timeout=300)
 
-            # AZ at the resume checks' cut, bit for bit; cuDNN's deterministic
-            # algorithms, so two runs of one conv backward agree
-            deterministic = torch.backends.cudnn.deterministic
-            torch.backends.cudnn.deterministic = True
-            try:
-                cfg = az.AZConfig(**PAR_AZ)
-                states, az_s = [], []
-                for sharded in (True, False):
-                    g = torch.Generator(device=dev)
-                    g.manual_seed(12)
-                    st = az.init_alphazero(cfg, g)
-                    it = (sharded_alphazero.make_sharded_az_iteration(cfg, mesh) if sharded
-                          else az.make_train_iteration(cfg))
-                    w0 = time.perf_counter()
-                    stats = it(st, g)
-                    az_loss = float(stats["loss"])
-                    az_s.append(time.perf_counter() - w0)
-                    states.append((st, az_loss))
-            finally:
-                torch.backends.cudnn.deterministic = deterministic
+            # AZ at the resume checks' cut, bit for bit
+            cfg = az.AZConfig(**PAR_AZ)
+            states, az_s = [], []
+            for sharded in (True, False):
+                g = torch.Generator(device=dev)
+                g.manual_seed(12)
+                st = az.init_alphazero(cfg, g)
+                it = (sharded_alphazero.make_sharded_az_iteration(cfg, mesh) if sharded
+                      else az.make_train_iteration(cfg))
+                w0 = time.perf_counter()
+                stats = it(st, g)
+                az_loss = float(stats["loss"])
+                az_s.append(time.perf_counter() - w0)
+                states.append((st, az_loss))
             (st_a, l_a), (st_b, l_b) = states
             check(nets_equal(st_a.net, st_b.net) and trees_equal(st_a.env_state, st_b.env_state),
                   "parallel: world-1 AZ params and env state == unsharded")

@@ -81,10 +81,14 @@ class ConvActorCritic(_ActorCritic):
     3x3 board: a 3x3 conv, then ``blocks`` residual blocks of two 3x3 convs,
     all ``channels`` wide, then the heads on the flattened planes.
 
-    The input is flat [B, 117] in (channel, cell) order, so
-    ``reshape(B, 13, 3, 3)`` is already NCHW.  flax flattens the last
-    activations in NHWC order ``(h, w, c)``, so they are permuted to NHWC
-    before the heads, and a flax ``Dense`` kernel loads as it is."""
+    Each conv runs as one dense matrix product (:func:`dense_conv_weight`)
+    with its bias in the product's epilogue, and its ReLU too where no
+    gradient is recorded, except in the second conv of a block, which adds
+    the residual first.  The
+    stem reads the flat [B, 117] input in its (channel, cell) order; every
+    later activation is [B, 9·channels] in (cell, channel) order, flax's
+    NHWC flattening, so a flax ``Dense`` kernel of the heads loads as it
+    is."""
 
     def __init__(self, num_actions: int = NUM_ACTIONS, channels: int = 64, blocks: int = 2,
                  dtype: torch.dtype = torch.bfloat16, device=None):
@@ -98,17 +102,71 @@ class ConvActorCritic(_ActorCritic):
         )
         self.logits = skip_init(nn.Linear, 9 * channels, num_actions, device=device)
         self.value = skip_init(nn.Linear, 9 * channels, 1, device=device)
+        # a constant, so not in the state dict
+        self.register_buffer("taps", tap_selector(device), persistent=False)
 
-    def _conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, *self._cast(self.convs[i]), padding=1)  # flax "SAME"
+    def _dense(self) -> tuple[list[torch.Tensor], tuple[torch.Tensor, ...]]:
+        """Each conv's dense weight (:func:`dense_conv_weight`) and its bias
+        tiled over the cells in (cell, channel) order, in ``dtype``: the
+        block convs, all one shape, in one product and one copy, and the
+        biases in one copy."""
+        stem, *rest = self.convs
+        weights = [dense_conv_weight(stem.weight, self.taps, False, self.dtype)]
+        if rest:
+            stacked = torch.stack([conv.weight for conv in rest])
+            weights += dense_conv_weight(stacked, self.taps, True, self.dtype).unbind()
+        biases = torch.stack([conv.bias for conv in self.convs]).to(self.dtype).repeat(1, 9)
+        return weights, biases.unbind()
 
     def forward(self, obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        b = obs.shape[0]
-        x = F.relu(self._conv(0, obs.reshape(b, OBS_CHANNELS, 3, 3).to(self.dtype)))
+        weights, biases = self._dense()
+        x = _dense_relu(obs.reshape(obs.shape[0], -1).to(self.dtype), weights[0], biases[0])
         for k in range(self.blocks):
-            h = F.relu(self._conv(1 + 2 * k, x))
-            x = F.relu(x + self._conv(2 + 2 * k, h))
-        return self._heads(x.permute(0, 2, 3, 1).reshape(b, -1))
+            h = _dense_relu(x, weights[1 + 2 * k], biases[1 + 2 * k])
+            x = _dense_relu(h, weights[2 + 2 * k], biases[2 + 2 * k], residual=x)
+        return self._heads(x)
+
+
+def _dense_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+    """relu(x @ weight + bias [+ residual]): the bias in the product's
+    epilogue (cuBLASLt's on the card), and the ReLU there too where no
+    residual is added and no gradient is recorded (PyTorch has no derivative
+    for that call); elsewhere the ReLU is a pass over the rounded sum, which
+    gives the same numbers."""
+    if residual is None and not torch.is_grad_enabled():
+        return torch._addmm_activation(bias, x, weight)
+    y = torch.addmm(bias, x, weight)
+    return (y if residual is None else y.add_(residual)).relu_()
+
+
+def tap_selector(device=None) -> torch.Tensor:
+    """float32 [81, 9], row 9·p + q: 1 at tap t where input cell p is output
+    cell q's neighbour through the 3x3 kernel's tap t = p - q + (1, 1)."""
+    cell = torch.arange(9, device=device)
+    dh = cell[:, None] // 3 - cell // 3 + 1                                 # [p, q]
+    dw = cell[:, None] % 3 - cell % 3 + 1
+    inside = (dh >= 0) & (dh < 3) & (dw >= 0) & (dw < 3)
+    return (((3 * dh + dw)[..., None] == cell) & inside[..., None]).reshape(81, 9).float()
+
+
+def dense_conv_weight(weight: torch.Tensor, taps: torch.Tensor, cells_first: bool,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """A 3x3 "SAME" conv on the 3x3 board, ``weight`` [..., c_out, c_in, 3,
+    3], as the ``dtype`` matrix [..., 9·c_in, 9·c_out] that right-multiplies
+    a flat input.
+
+    The entry at (input cell p, channel ci; output cell q, channel co) is
+    ``weight[co, ci, p - q + (1, 1)]`` where p is a neighbour of q, else 0
+    (the padding).  Columns are in (cell, channel) order, and rows too if
+    ``cells_first``, else in the observation's (channel, cell) order.  One
+    product of :func:`tap_selector`'s ``taps`` with the kernels' taps, exact
+    (each entry is one tap or none), its backward one small product too;
+    then one copy that orders and casts it."""
+    *lead, c_out, c_in = weight.shape[:-2]
+    dense = (taps @ weight.reshape(-1, 9).t()).view(9, 9, -1, c_out, c_in)  # [p, q, n, co, ci]
+    dense = dense.permute(2, 0, 4, 1, 3) if cells_first else dense.permute(2, 4, 0, 1, 3)
+    return dense.to(dtype, memory_format=torch.contiguous_format).reshape(*lead, 9 * c_in, 9 * c_out)
 
 
 def masked_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

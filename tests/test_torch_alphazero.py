@@ -90,23 +90,42 @@ def flat_batch(n, seed):
     }
 
 
+@pytest.fixture
+def conv_in_float64(model):
+    """The conv case's nets compute in float64 (JAX's x64 on for that test,
+    then as it was); the MLP's in float32."""
+    if model != "conv":
+        yield np.float32, jnp.float32, torch.float32
+        return
+    before = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield np.float64, jnp.float64, torch.float64
+    jax.config.update("jax_enable_x64", before)
+
+
 @pytest.mark.parametrize("model,max_grad_norm", [("mlp", 1.0), ("conv", 1.0), ("mlp", 1e3)])
-def test_loss_and_update_phase_match_optax(model, max_grad_norm):
+def test_loss_and_update_phase_match_optax(model, max_grad_norm, conv_in_float64):
     """The loss, then a whole update phase (two minibatches cut from JAX's
     permutation): global-norm clip (triggered at 1.0, not at 1e3) and
-    AdamW with weight decay on every parameter."""
+    AdamW with weight decay on every parameter.
+
+    The conv nets compute in float64 (their logits are float32): a gradient
+    near Adam's eps (1e-8) is float32 rounding noise, and AdamW turns it
+    into a parameter gap of up to 2e-5 between two float32 summation
+    orders of the convs."""
+    np_dtype, jdtype, tdtype = conv_in_float64
     kw = dict(model=model, channels=8, blocks=1, hidden_sizes=(32,), batch_size=48,
               updates_per_iter=2, max_grad_norm=max_grad_norm, lr=1e-2, weight_decay=0.1)
     jcfg, tcfg = jaz.AZConfig(**kw), taz.AZConfig(**kw)
     if model == "conv":
-        jnet = jac.ConvActorCritic(channels=8, blocks=1, dtype=jnp.float32)
-        tnet = tac.ConvActorCritic(channels=8, blocks=1, dtype=torch.float32, device=CPU)
+        jnet = jac.ConvActorCritic(channels=8, blocks=1, dtype=jdtype)
+        tnet = tac.ConvActorCritic(channels=8, blocks=1, dtype=tdtype, device=CPU)
     else:
-        jnet = jac.MLPActorCritic(hidden_sizes=(32,), dtype=jnp.float32)
-        tnet = tac.MLPActorCritic(hidden_sizes=(32,), dtype=torch.float32, device=CPU)
-    params = jax.tree.map(np.asarray, jnet.init(jax.random.PRNGKey(1),
-                                                jnp.zeros((1, 117), jnp.int8)))
-    tnet.load_state_dict(actor_critic_params_from_flax(params, model))
+        jnet = jac.MLPActorCritic(hidden_sizes=(32,), dtype=jdtype)
+        tnet = tac.MLPActorCritic(hidden_sizes=(32,), dtype=tdtype, device=CPU)
+    params = jax.tree.map(lambda x: np.asarray(x, np_dtype),
+                          jnet.init(jax.random.PRNGKey(1), jnp.zeros((1, 117), jnp.int8)))
+    tnet.to(tdtype).load_state_dict(actor_critic_params_from_flax(params, model))
     flat = flat_batch(100, 2)
     jflat = {k: jnp.asarray(v) for k, v in flat.items()}
     tflat = {k: t(v) for k, v in flat.items()}

@@ -26,17 +26,19 @@ from gobblet_rl_torch.train import alphazero
 CPU = torch.device("cpu")
 
 
-def conv_net(seed: int, channels: int = 64, blocks: int = 2):
-    """A float32 ``ConvActorCritic`` with LeCun weights and small nonzero
-    biases, and its parameters as the reference's dict."""
+def conv_net(seed: int, channels: int = 64, blocks: int = 2, dtype=torch.float32):
+    """A ``ConvActorCritic`` computing in ``dtype``, with LeCun weights and
+    small nonzero biases drawn in float32 and held in ``dtype``, and its
+    parameters as the reference's dict."""
     gen = torch.Generator()
     gen.manual_seed(seed)
-    net = ac.ConvActorCritic(channels=channels, blocks=blocks, dtype=torch.float32, device=CPU)
+    net = ac.ConvActorCritic(channels=channels, blocks=blocks, dtype=dtype, device=CPU)
     net.reset_parameters(gen)
     with torch.no_grad():
         for name, p in net.named_parameters():
             if name.endswith("bias"):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    net.to(dtype)
     return net, {k: v.detach().clone() for k, v in net.state_dict().items()}
 
 
@@ -115,9 +117,15 @@ def test_update_matches_reference(max_grad_norm):
     """Three updates: the loss of each, the parameters after, with the clip
     active (norm 1) and idle.  Update ``i`` takes the rows
     ``perm[start:start + 32]``, ``start = 32 i mod (96 - 32)``, so the third
-    repeats the first."""
+    repeats the first.
+
+    The nets compute in float64 (the port's logits are float32): a
+    gradient near Adam's eps (1e-8) is float32 rounding noise, and AdamW
+    turns it into a parameter gap of up to 2e-5 between any two float32
+    summation orders; the float32 reference itself lies 1.9e-5 from its
+    float64 result here."""
     config = alphazero.AZConfig(batch_size=32, updates_per_iter=3, max_grad_norm=max_grad_norm)
-    net, params = conv_net(7, channels=32, blocks=2)
+    net, params = conv_net(7, channels=32, blocks=2, dtype=torch.float64)
     flat = flat_batch(13, 96)
     gen = torch.Generator()
     gen.manual_seed(4)
@@ -127,7 +135,7 @@ def test_update_matches_reference(max_grad_norm):
     rcfg = {"lr": config.lr, "betas": (0.9, 0.999), "eps": 1e-8,
             "weight_decay": config.weight_decay, "max_grad_norm": max_grad_norm,
             "value_coef": config.value_coef}
-    rows = {k: (v.to(torch.float32) if k == "obs" else v) for k, v in flat.items()}
+    rows = {k: (v.to(torch.float64) if k == "obs" else v) for k, v in flat.items()}
     batches = [{k: v[perm[(i * 32) % 64:][:32]] for k, v in rows.items()} for i in range(3)]
     # one iteration an update, so each update's loss is reported
     ref_losses, _, ref_params = ref_az.train(params, [[mb] for mb in batches], rcfg)
